@@ -1,14 +1,13 @@
 """ExpertSolver solve-boundary cost: NumPy in-place vs device-resident.
 
-Round 2 measured the compat ``solve()`` at 77 k solves/s for 8192 cases —
-transfer-latency dominated (three host syncs per call: fk upload, fi
-upload, result download).  Round 3 (a) accepts device ``fk`` without a
-host copy, (b) uploads the knowns seed only when knowns exist, (c)
-fetches all outputs through ONE ``jax.device_get``, and (d) adds
-``solve_device()`` — JAX arrays in/out with ZERO host synchronization,
-so back-to-back solves pipeline on device (the IBVP pattern).
+The compat ``solve()`` pays host transfers on every call: it accepts a
+device ``fk`` without a host copy, uploads the knowns seed only when
+knowns exist, and fetches all outputs through ONE ``jax.device_get``.
+``solve_device()`` takes and returns JAX arrays with no host
+synchronization, so back-to-back solves pipeline on device (the IBVP
+pattern).  This script times both on the default JAX device.
 
-Run on TPU: python benchmarks/run_expert_boundary.py [ncases]
+Run: python benchmarks/run_expert_boundary.py [ncases]
 """
 import os
 import sys

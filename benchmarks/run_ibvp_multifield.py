@@ -1,23 +1,14 @@
 """IBVP stepping cost vs number of fields: amortizing the neighbor gather.
 
-Round-1 decomposition of the coupled heat step (benchmarks/README.md)
-showed the neighbor-value gather ``u[idx]`` dominating the time step
-(9.7 ms of ~9.3+X ms at 20,480 points, k=28) — XLA's TPU gather is
-indexing-bound, not payload-bound.  The fix is the reference's guest-mode
-pattern (multiple fields sharing one prepared geometry, reference:
-wlsqm/fitter/expert.pyx:110-124) done batch-style: keep the state as
-(n, F), gather ALL fields' neighbor values with ONE row-gather
-``u[idx] -> (B, K, F)``, and solve the F fields through the prepared
-factorization's multi-RHS path in one call.  Indexing cost is paid once
-per step instead of once per field.
+An explicit heat step on a prepared WLSQM Laplacian is one neighbor-value
+gather ``u[idx]`` plus one prepared solve.  With F fields sharing one
+geometry, the state is (n, F): ONE row-gather fetches every field's
+neighbor values and ONE multi-RHS solve (``wt.solve`` with fk (F, B, K))
+reuses the factorizations, so the per-field step cost falls with F.
 
-Round 3 adds the Pallas window gather (wlsqm_tpu/ops/gather.py): after
-Morton-ordering the cloud, each block of cases reads one contiguous DMA
-window of u and selects neighbors with a one-hot MXU matmul — replacing
-XLA's per-element gather entirely.  The table below reports both.
-
-Run on TPU:  python benchmarks/run_ibvp_multifield.py
-Prints a step-time table vs F (fields per step), xla vs window gather.
+Run: python benchmarks/run_ibvp_multifield.py [n_points]
+Prints a step-time table vs F (fields per step) for the f64 engine on the
+default JAX device, plus the gather's rate in indices per second.
 """
 
 import os
@@ -34,129 +25,55 @@ import wlsqm_tpu as wt
 from wlsqm_tpu.utils import neighbors
 
 
+def timed(fn, *args, reps=3):
+    jax.block_until_ready(fn(*args))   # compile
+    best = np.inf
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = jax.block_until_ready(fn(*args))
+        best = min(best, time.perf_counter() - t0)
+    return best, out
+
+
 def main():
+    n = int(sys.argv[1]) if len(sys.argv) > 1 else 1_000_000
+    k, nu, dt, steps = 28, 0.05, 2e-9, 20
     rng = np.random.default_rng(42)
-    n, k = 20480, 28
-    nu = 0.05
-    dt = 2e-5
-    steps_per_scan = 50
-
-    from wlsqm_tpu.ops import gather as gth
-
     pts = rng.uniform(0.0, 1.0, (n, 2))
-    pts = pts[gth.morton_order(pts)]      # localize neighbor indices
-    # host knn: the device brute-force path is fine but the remote
-    # bridge has been observed to stall on its first big compile;
-    # neighbor search is not what this benchmark measures
-    xk_idx, _ = neighbors.knn(pts, pts, k + 1, backend="host")
-    xk_idx = np.asarray(xk_idx)[:, 1:]
-    xk = jnp.asarray(pts[xk_idx])
-    idx = jnp.asarray(xk_idx.astype(np.int32))
-    gplan = gth.plan_window_gather(xk_idx, n)
-    print("window-gather plan:", "OK (%d blocks, W=%d)"
-          % (gplan.nblk, gplan.window) if gplan else "overflow -> xla only")
-
-    prep = wt.prepare(xk, jnp.asarray(pts), order=2,
-                      weighting=wt.WEIGHT_CENTER, precision="ds",
-                      scaling="jacobi", solver="chol_unrolled")
+    idx_h, _ = neighbors.knn(pts, pts, k + 1, backend="host")
+    idx = jnp.asarray(np.asarray(idx_h)[:, 1:].astype(np.int32))
+    prep = wt.prepare(jnp.asarray(pts)[idx], jnp.asarray(pts), order=2,
+                      weighting=wt.WEIGHT_CENTER)
     lap_idx = jnp.asarray([wt.i2_X2, wt.i2_Y2])
+    dev = jax.devices()[0]
+    print("device %s | n=%d k=%d order=2 f64; %d steps per timed scan"
+          % (dev.device_kind, n, k, steps), flush=True)
 
-    def timed(fn, *args):
-        out = fn(*args)
-        jax.block_until_ready(out)   # compile
-        reps = 3
-        best = np.inf
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            out = fn(*args)
-            jax.block_until_ready(out)
-            best = min(best, time.perf_counter() - t0)
-        return best, out
+    @jax.jit
+    def scan(u):
+        def step(u, _):
+            fk = jnp.moveaxis(u[idx], -1, 0)       # ONE gather -> (F, B, K)
+            fi, _ = wt.solve(prep, fk)             # multi-RHS solve
+            return u + dt * nu * fi[..., lap_idx].sum(-1).T, None
 
-    print("n=%d k=%d order=2 ds; %d steps per timed scan"
-          % (n, k, steps_per_scan), flush=True)
-    print("F  step_ms  per_field_ms  checksum", flush=True)
+        return jax.lax.scan(step, u, None, length=steps)[0]
 
-    def make_scan(gather_fn):
-        @jax.jit
-        def multi_step_scan(u):
-            def step(u, _):
-                fk = gather_fn(u)                     # ONE gather: (B, K, F)
-                fk = jnp.moveaxis(fk, -1, 0)          # (F, B, K)
-                fi, _ = wt.solve(prep, fk)            # multi-RHS solve
-                lap = fi[..., lap_idx].sum(-1)        # (F, B)
-                return u + dt * nu * lap.T, None
-            u, _ = jax.lax.scan(step, u, None, length=steps_per_scan)
-            return u
-        return multi_step_scan
+    @jax.jit
+    def gather_only(u):
+        return u[idx]
 
-    # ds-state stepping: the field stays an f32 (hi, lo) pair across the
-    # whole scan — pair gather + pair solve + pair Euler update — so NO
-    # emulated-f64 op ever touches the (B, K) or (n, F) arrays inside a
-    # step.  f64 appears only at the scan boundary (one split / one render
-    # per 50-step scan call).
-    from wlsqm_tpu.fitter import engine_ds
-    from wlsqm_tpu.ops import twofloat as tf
-
-    def make_scan_pair():
-        dtnu = tf.from_f64(jnp.float64(dt * nu))
-
-        @jax.jit
-        def multi_step_scan(u):                          # u f64 (n, F)
-            up = tf.from_f64(u)
-
-            def step(up, _):
-                fkp = gth.gather_rows_pair(up, idx, gplan)   # pair (B,K,F)
-                fkp = (jnp.moveaxis(fkp[0], -1, 0),
-                       jnp.moveaxis(fkp[1], -1, 0))          # pair (F,B,K)
-                fip = jax.vmap(
-                    lambda h, l: engine_ds.solve_prepared_ds_pair(
-                        prep, (h, l)))(fkp[0], fkp[1])       # pair (F,B,NO)
-                lap = tf.add((fip[0][..., wt.i2_X2], fip[1][..., wt.i2_X2]),
-                             (fip[0][..., wt.i2_Y2], fip[1][..., wt.i2_Y2]))
-                lap = (lap[0].T, lap[1].T)                   # pair (n, F)
-                return tf.add(up, tf.mul(
-                    lap, (jnp.broadcast_to(dtnu[0], lap[0].shape),
-                          jnp.broadcast_to(dtnu[1], lap[0].shape)))), None
-
-            up, _ = jax.lax.scan(step, up, None, length=steps_per_scan)
-            return tf.to_f64(up)
-        return multi_step_scan
-
-    variants = [("xla", make_scan(lambda u: u[idx]))]
-    if gplan is not None:
-        variants.append(("window", make_scan(
-            lambda u: gth.gather_rows(u, idx, gplan))))
-        variants.append(("ds-state", make_scan_pair()))
-
-    # WLSQM_IBVP_QUICK=1 measures only F=1,8 (fewer compiles — the remote
-    # bridge pays tens of seconds per compile on a bad day)
-    Fs = (1, 8) if os.environ.get("WLSQM_IBVP_QUICK") else (1, 2, 4, 8)
-    rows = {}
-    for name, scan_fn in variants:
-        for F in Fs:
-            u0 = jnp.asarray(
-                np.sin(np.pi * pts[:, 0:1] * np.arange(1, F + 1))
-                * np.sin(np.pi * pts[:, 1:2]))       # (n, F)
-            t, out = timed(scan_fn, u0)
-            step_ms = t / steps_per_scan * 1e3
-            rows[(name, F)] = (step_ms, float(jnp.sum(out)))
-            print("%-6s %d  %7.2f  %11.2f  %.6f"
-                  % (name, F, step_ms, step_ms / F, float(jnp.sum(out))),
-                  flush=True)
-
-    if gplan is not None:
-        for F in (1, 8):
-            sx, cx = rows[("xla", F)]
-            sw, cw = rows[("window", F)]
-            sp, cp = rows[("ds-state", F)]
-            assert abs(cx - cw) < 1e-6 * max(1.0, abs(cx)), \
-                "gather variants disagree"
-            assert abs(cx - cp) < 1e-6 * max(1.0, abs(cx)), \
-                "ds-state stepping disagrees"
-            print("F=%d: window %.2f ms, ds-state %.2f ms vs xla %.2f ms "
-                  "(%.2fx / %.2fx step speedup)"
-                  % (F, sw, sp, sx, sx / sw, sx / sp), flush=True)
+    print("F  step_ms  per_field_ms  gather_ms  gather_Gidx/s", flush=True)
+    for F in (1, 2, 4, 8):
+        u0 = jnp.asarray(np.sin(np.pi * pts[:, 0:1] * np.arange(1, F + 1))
+                         * np.sin(np.pi * pts[:, 1:2]))
+        t, out = timed(scan, u0)
+        tg, _ = timed(gather_only, u0)
+        if not bool(jnp.isfinite(out).all()):
+            raise AssertionError("non-finite field at F=%d" % F)
+        step_ms = t / steps * 1e3
+        print("%d  %7.3f  %11.3f  %9.3f  %12.3f"
+              % (F, step_ms, step_ms / F, tg * 1e3, idx.size / tg / 1e9),
+              flush=True)
 
 
 if __name__ == "__main__":

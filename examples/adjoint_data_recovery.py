@@ -1,4 +1,4 @@
-"""Adjoint data recovery: backprop THROUGH the fused fit kernel.
+"""Adjoint data recovery: backprop THROUGH the WLSQM fit.
 
 An inverse problem the reference cannot express: we observe a noisy
 field ``u_obs`` at scattered points and know the PDE source it must
@@ -11,15 +11,15 @@ nodal values:
     min_u   mean( (lap_wlsqm(u) - g)^2 ) + lam * mean( (u - u_obs)^2 )
 
 The gradient of the first term needs the adjoint of the fit with
-respect to the DATA.  ``wlsqm_tpu.ops.pallas_fit.fit_pallas_diffable``
-provides exactly that at fused-kernel speed: the basic fit is linear in
-the data, so its reverse pass is the kernel's own sensitivity array
-(one ``do_sens`` launch + an einsum), and ``jax.grad`` flows through
-the neighbor gather ``u[idx]`` back to the nodal values.  The reference
-computes the same sensitivity array (wlsqm/fitter/impl.pyx:768-846) but
-has no machinery to chain it through a gather into an optimizer.
+respect to the DATA.  The geometry is fixed, so it is prepared once
+(:func:`wlsqm_tpu.prepare`); the prepared solve is linear in the data and
+built from differentiable XLA ops, so ``jax.grad`` flows through
+:func:`wlsqm_tpu.solve` and the neighbor gather ``u[idx]`` back to the
+nodal values.  The reference computes the same sensitivity array
+(wlsqm/fitter/impl.pyx:768-846) but has no machinery to chain it through
+a gather into an optimizer.
 
-Run: python examples/adjoint_data_recovery.py    (CPU: interpret mode)
+Run: python examples/adjoint_data_recovery.py
 """
 
 import os
@@ -32,10 +32,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+import wlsqm_tpu as wt
 from wlsqm_tpu.fitter import defs
-from wlsqm_tpu.ops.pallas_fit import fit_pallas_diffable
 
-N_SIDE = 32                 # 32 x 32 grid -> B = 1024 = one kernel TILE
+N_SIDE = 32                 # 32 x 32 grid -> B = 1024 cases
 K = 12                      # neighbors per case (nearest, self excluded)
 LAM = 2e-3                  # data-fidelity weight
 STEPS = 60
@@ -43,9 +43,6 @@ LR = 4e-3
 
 
 def main():
-    on_tpu = jax.devices()[0].platform != "cpu"
-    interpret = not on_tpu
-
     # manufactured Poisson problem on [0,1]^2
     h = 1.0 / (N_SIDE - 1)
     g1 = np.linspace(0.0, 1.0, N_SIDE)
@@ -66,22 +63,20 @@ def main():
     idx_j = jnp.asarray(idx)
     xi = jnp.asarray(pts)
     xk = jnp.asarray(pts[idx])                               # (B, K, 2)
-    nk = jnp.full((B,), K, jnp.int32)
+    prep = wt.prepare(xk, xi, order=2, weighting=defs.WEIGHT_CENTER)
 
     iX2, iY2 = defs.i2_X2, defs.i2_Y2
 
-    def wlsqm_lap(u):
+    def wlsqm_lap(prep, u):
         """WLSQM Laplacian estimate at every point, from nodal values."""
         fk = u[idx_j]                       # differentiable gather
-        fi = fit_pallas_diffable(xk, fk, nk, xi, dimension=2, order=2,
-                                 weighting=defs.WEIGHT_CENTER,
-                                 interpret=interpret)
+        fi, _ = wt.solve(prep, fk)
         return fi[:, iX2] + fi[:, iY2]
 
     @jax.jit
-    def loss_and_grad(u):
+    def loss_and_grad(prep, u):
         def loss(u):
-            r = wlsqm_lap(u) - g
+            r = wlsqm_lap(prep, u) - g
             return (r ** 2).mean() + LAM * ((u - u_obs) ** 2).mean()
 
         return jax.value_and_grad(loss)(u)
@@ -93,7 +88,7 @@ def main():
     u = jnp.asarray(u_obs)
     print("noisy observation rel error: %.4f" % rel(np.asarray(u)))
     for it in range(STEPS):
-        val, grad = loss_and_grad(u)
+        val, grad = loss_and_grad(prep, u)
         u = u - LR * grad / (jnp.abs(grad).max() + 1e-30) * \
             jnp.abs(u).max()                # scale-free fixed step
         if it % 10 == 0 or it == STEPS - 1:

@@ -1,14 +1,14 @@
 """Fully distributed WLSQM pipeline: cloud in, global model out.
 
-Demonstrates the multi-chip layer end to end on a virtual CPU mesh (run on
-a real TPU pod slice unchanged — just drop the XLA_FLAGS override):
+Demonstrates the multi-device layer end to end on a virtual CPU mesh (it
+runs unchanged on a host with several GPUs; see the usage line below):
 
   1. the point cloud is sharded over the mesh's case axis;
   2. neighborhoods are assembled on device (`sharded_build_neighborhoods`:
-     one coordinate all-gather over ICI, then local brute-force kNN);
+     one coordinate all-gather, then local brute-force kNN);
   3. every shard fits its own cases (`sharded_fit_many`: ZERO collectives
      in the compiled fit program — the reference's OpenMP `prange` with no
-     cross-thread traffic becomes sharding with no cross-chip traffic,
+     cross-thread traffic becomes sharding with no cross-device traffic,
      reference: wlsqm/fitter/simple.pyx:996-1008);
   4. the patched global model is queried both ways: Voronoi-nearest
      (`sharded_interpolate_nearest`, coefficient all-gather + local top-1)
@@ -30,7 +30,7 @@ import jax                                                   # noqa: E402
 
 # the demo runs on a virtual 8-device CPU mesh by default so the sharding
 # is real multi-device even on a laptop; set WLSQM_DEMO_REAL_DEVICES=1 to
-# use whatever accelerators jax sees (e.g. an actual TPU pod slice)
+# use whatever accelerators jax sees (e.g. the GPUs of one host)
 if not os.environ.get("WLSQM_DEMO_REAL_DEVICES"):
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_num_cpu_devices", 8)
@@ -85,9 +85,9 @@ def main():
     print(f"d/dx blend max |err| = {np.abs(dblend - dtruth).max():.2e}")
 
     # -- 5: distributed IBVP-style stepping --------------------------------
-    # prepare once (factorizations case-sharded in HBM), then each step is
-    # one shard-local neighbor-value gather (a single small all-gather of
-    # the field vector over ICI) + a zero-collective multi-field solve.
+    # prepare once (factorizations case-sharded in device memory), then
+    # each step is one shard-local neighbor-value gather (a single small
+    # all-gather of the field vector) + a zero-collective multi-field solve.
     import wlsqm_tpu as wt
 
     idx, _ = sharding.sharded_knn(mesh, pts_d, pts_d, k + 1)

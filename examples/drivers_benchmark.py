@@ -27,8 +27,8 @@ import numpy as np
 import jax
 
 # this benchmark compares HOST driver paths (like the reference's CPU
-# LAPACK figure); pin it to CPU so remote-accelerator dispatch latency and
-# emulated f64 don't drown the comparison
+# LAPACK figure); pin it to CPU so accelerator dispatch latency doesn't
+# drown the comparison
 jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
@@ -126,9 +126,9 @@ def main():
               f"{t_uc*1e6:>11.2f} us")
 
     print("\n(mgeneral = one fused XLA batched solve, the reference figure's"
-          "\n red/green curves; the unrolled Cholesky is designed for the TPU"
-          "\n vector unit — XLA CPU handles its fully unrolled graph poorly,"
-          "\n shown for completeness.)")
+          "\n red/green curves; the unrolled Cholesky targets accelerators"
+          "\n with wide vector units — XLA CPU handles its fully unrolled"
+          "\n graph poorly, shown for completeness.)")
 
     try:
         _write_figure(sizes, rows,

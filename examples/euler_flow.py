@@ -3,7 +3,7 @@
 The reference was built to drive explicit meshless flow solvers — its theory
 docs include a full compressible-flow application writeup (reference:
 doc/eulerflow.pdf via README.md:226-231).  This example reproduces that
-workload TPU-style: the 2D compressible Euler equations
+workload as batched device programs: the 2D compressible Euler equations
 
     U_t + F(U)_x + G(U)_y = 0,       U = (rho, rho*u, rho*v, E)
 
@@ -78,11 +78,6 @@ def main():
     pts = np.stack(np.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
     pts += rng.uniform(-0.25, 0.25, pts.shape) * (L / nside)
     pts %= L
-    # Morton-order the cloud so the per-stage flux gather fl[own] can use
-    # the window-gather kernel (ops/gather.py)
-    from wlsqm_tpu.ops import gather as gth
-
-    pts = pts[gth.morton_order(pts)]
 
     # periodic neighborhoods: query against the 3x3 ghost tiling; neighbor
     # positions keep their ghost coordinates (true offsets), values gather
@@ -108,19 +103,10 @@ def main():
         G = jnp.stack([my, mx * v, my * v + p, (E + p) * v], -1)
         return jnp.concatenate([F, G], -1)
 
-    # window-gather plan for the 8-wide flux row gather (multi-field
-    # payloads amortize the selection matmul); periodic-wrap blocks with
-    # >2 index clusters fall back per-block automatically
-    plan = (gth.plan_window_gather(np.asarray(own), n)
-            if jax.default_backend() != "cpu" else None)
-    if plan is not None:
-        print(f"window gather: coverage {plan.coverage:.1%}")
-
     def rhs(U):
         """-div(F, G) at every point from one multi-RHS prepared solve."""
         fl = flux_fields(U)                       # (B, 8)
-        fk = (fl[own] if plan is None
-              else gth.gather_rows(fl, own, plan))  # (B, K, 8)
+        fk = fl[own]                              # (B, K, 8) row gather
         fi, _ = wt.solve(prep, jnp.moveaxis(fk, -1, 0))   # (8, B, NO)
         return -(fi[:4, :, ix] + fi[4:, :, iy]).T          # (B, 4)
 

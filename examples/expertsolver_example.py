@@ -32,7 +32,7 @@ def main():
     vals = field(pts)
 
     # every sample site is also a fit origin; neighbors from the cloud
-    xk_idx, _ = neighbors.knn(pts, pts, k + 1, backend="tpu")
+    xk_idx, _ = neighbors.knn(pts, pts, k + 1, backend="device")
     xk_idx = np.asarray(xk_idx)[:, 1:]
     xk = pts[xk_idx]
     fk = vals[xk_idx]
@@ -47,7 +47,7 @@ def main():
     solver.prepare(xi=pts, xk=xk)
     fi = np.zeros((npts, wt.number_of_dofs(2, 2)))
     solver.solve(fk=fk, fi=fi)
-    print("prepared+solved %d local models; HBM used: %.1f MB"
+    print("prepared+solved %d local models; device memory used: %.1f MB"
           % (npts, solver.memory_used()[0] / 1e6))
 
     # project onto a grid

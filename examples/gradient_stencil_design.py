@@ -2,7 +2,7 @@
 
 The reference computes one derivative by hand — the data sensitivity
 ``sens[k,j] = d fi[j] / d fk[k]`` (reference: wlsqm/fitter/impl.pyx:768-846)
-— and uses it to reason about noise amplification.  Because the TPU
+— and uses it to reason about noise amplification.  Because the JAX
 rebuild's engine is a differentiable XLA program, we can go one step
 further than the reference ever could: differentiate that noise
 amplification with respect to the NEIGHBOR POSITIONS and descend on it.
@@ -71,7 +71,7 @@ def monte_carlo_noise(xk, trials=4000, sigma=1.0, seed=0):
     rng = np.random.default_rng(seed)
     fk = sigma * rng.standard_normal((trials, K))
     res = wt.fit_many(np.broadcast_to(np.asarray(xk), (trials, K, DIM)),
-                      fk, order=ORDER, backend="xla", precision="f64")
+                      fk, order=ORDER, precision="f64")
     return float(np.std(np.asarray(res.fi)[:, defs.i2_X]))
 
 

@@ -26,7 +26,6 @@ import jax
 import jax.numpy as jnp
 
 import wlsqm_tpu as wt
-from wlsqm_tpu.ops import gather as gth
 from wlsqm_tpu.utils import neighbors
 
 
@@ -46,13 +45,7 @@ def main():
         np.stack([np.ones_like(t), t], -1),
     ])
     pts = np.concatenate([interior, boundary])
-    # Morton-order the cloud: neighbor indices become spatially local, so
-    # the window-gather kernel can serve the per-step u[idx] (the
-    # measured bottleneck of the XLA step — benchmarks/README.md)
-    perm = gth.morton_order(pts)
-    pts = pts[perm]
-    n = len(pts)
-    is_interior = perm < n_interior
+    is_interior = np.arange(len(pts)) < n_interior
 
     # manufactured solution: u(x,y,t) = exp(-2 pi^2 nu t) sin(pi x) sin(pi y)
     def exact(p, tt):
@@ -62,7 +55,7 @@ def main():
     u0 = exact(pts, 0.0)
 
     # neighborhoods over the full cloud (self excluded: F stays a fit DOF)
-    xk_idx, _ = neighbors.knn(pts, pts, k + 1, backend="tpu")
+    xk_idx, _ = neighbors.knn(pts, pts, k + 1, backend="device")
     xk_idx = np.asarray(xk_idx)[:, 1:]
     xk = jnp.asarray(pts[xk_idx])
 
@@ -76,21 +69,9 @@ def main():
     interior_mask = jnp.asarray(is_interior)
     idx = jnp.asarray(xk_idx)
 
-    # window-gather plan for the per-step neighbor lookup (Morton-ordered
-    # cloud => spatially local indices); None when too many blocks
-    # overflow — or on CPU, where XLA's gather is not the bottleneck —
-    # in which case the plain u[idx] serves
-    plan = (gth.plan_window_gather(xk_idx, n)
-            if jax.default_backend() != "cpu" else None)
-    if plan is not None:
-        print(f"window gather: coverage {plan.coverage:.1%}")
-
-    def gather(u):
-        return u[idx] if plan is None else gth.gather_rows(u, idx, plan)
-
     @jax.jit
     def step(u, _):
-        fk = gather(u)                                # gather neighbor values
+        fk = u[idx]                                   # gather neighbor values
         fi, _sens = wt.solve(prep, fk)
         lap = fi[:, lap_idx].sum(axis=1)
         u_new = u + dt * nu * lap
@@ -115,8 +96,8 @@ def main():
     # factorization solves all F fields through its multi-RHS (F, B, K)
     # path — the reference's guest-mode pattern (multiple fields sharing
     # one prepared geometry, reference: wlsqm/fitter/expert.pyx:110-124)
-    # done batch-style.  Measured on TPU this cuts the per-field step cost
-    # ~6.6x at F=8 (benchmarks/run_ibvp_multifield.py).
+    # done batch-style (per-field step cost vs F:
+    # benchmarks/run_ibvp_multifield.py).
     # ------------------------------------------------------------------
     # diffusivities within the dt-stability envelope of the base run
     nus = np.array([0.02, 0.035, 0.05])
@@ -125,7 +106,7 @@ def main():
 
     @jax.jit
     def multi_step(u, _):
-        fk = gather(u)                                # ONE gather: (B, K, F)
+        fk = u[idx]                                   # ONE gather: (B, K, F)
         fi, _sens = wt.solve(prep, jnp.moveaxis(fk, -1, 0))   # (F, B, NO)
         lap = fi[..., lap_idx].sum(-1)                # (F, B)
         u_new = u + dt * nus_j[None, :] * lap.T

@@ -1,15 +1,13 @@
 """Composing fit_many with jit / scan / shard_map via a FitPlan.
 
-``backend="auto"`` inspects concrete data (conditioning probe, group
-bucketing), which cannot happen under a JAX trace.  The composable form
-is a two-step dance:
+A :class:`wlsqm_tpu.FitPlan` names one static configuration's engine
+precision (native float64 unless an emulation mode is pinned):
 
-1. eagerly capture the routing decision once, on concrete representative
-   data: ``plan = wt.plan_fit_many(xk, xi, order=...)``;
-2. pass it back: ``wt.fit_many(..., plan=plan)`` — the call then traces
-   with zero host-side inspection, so it nests inside ``jax.jit``,
-   ``lax.scan`` (e.g. an IBVP time loop) and ``shard_map`` (multi-chip
-   data parallelism over the case axis).
+1. compute it once: ``plan = wt.plan_fit_many(xk, xi, order=...)``;
+2. pass it back: ``wt.fit_many(..., plan=plan)`` — the call traces with
+   no host-side inspection, so it nests inside ``jax.jit``, ``lax.scan``
+   (e.g. an IBVP time loop) and ``shard_map`` (multi-device data
+   parallelism over the case axis).
 
 Run (any backend; uses an 8-device virtual CPU mesh when available):
 
@@ -35,7 +33,7 @@ def main():
     xk = xi[:, None, :] + rng.uniform(-0.4, 0.4, (B, K, 2))
     fk = np.sin(xk[..., 0]) * np.cos(xk[..., 1])
 
-    # 1. plan once on concrete data (host probe + ladder decision)
+    # 1. plan once for this configuration
     plan = wt.plan_fit_many(xk, xi, order=2)
     print("plan:", plan)
 

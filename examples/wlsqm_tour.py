@@ -117,27 +117,6 @@ def tour_jax_native(rng):
           f"{np.abs(fi[:, wt.i2_X] - dx_exact).max():.2e}")
 
 
-def tour_routing(rng):
-    banner("Conditioning-aware routing: the probe behind backend='auto'")
-    from wlsqm_tpu.fitter import condprobe
-
-    # fit_many's default backend='auto' sends each batch either to the
-    # fused ds TPU kernel or the f64 engine based on a millisecond probe
-    # of its conditioning (predicted kernel error ~ 2e-15 * cond * amp;
-    # see docs/theory.md section 7 and benchmarks/README.md)
-    for radius, label in ((1.0, "wide, well-conditioned"),
-                          (0.05, "tiny-radius, order-4 hostile")):
-        centers = rng.uniform(-1, 1, (2048, 2))
-        xk = centers[:, None, :] + rng.uniform(-radius, radius, (2048, 30, 2))
-        floor = condprobe.ds_floor(xk, None, centers, 4, wt.WEIGHT_CENTER,
-                                   dimension=2)
-        ok = condprobe.kernel_accuracy_ok(xk, None, centers, 4,
-                                          wt.WEIGHT_CENTER, dimension=2)
-        route = "ds kernel" if ok else "f64 engine"
-        print(f"  radius {radius:4}: predicted kernel floor {floor:.1e} "
-              f"-> {route}   ({label})")
-
-
 def tour_autodiff(rng):
     banner("Autodiff (beyond the reference): jax.grad through the fit")
     import jax
@@ -183,6 +162,5 @@ if __name__ == "__main__":
     tour_knowns(rng)
     tour_sensitivity(rng)
     tour_jax_native(rng)
-    tour_routing(rng)
     tour_autodiff(rng)
     print("\nAll tour stages done.")

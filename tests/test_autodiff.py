@@ -2,7 +2,7 @@
 
 The reference exposes one hand-derived derivative: the sensitivity array
 ``sens[k,j] = d fi[j] / d fk[k]`` computed by extra back-substitutions
-(reference: wlsqm/fitter/impl.pyx:768-846).  The TPU rebuild's engine
+(reference: wlsqm/fitter/impl.pyx:768-846).  The rebuild's engine
 path is built from differentiable XLA ops, so ``jax.grad`` / ``jacrev``
 / ``jacfwd`` deliver that matrix for free — and everything the reference
 cannot: gradients with respect to the NEIGHBOR GEOMETRY ``xk`` (sensor
@@ -14,13 +14,12 @@ their scale factors (exact: the fit is invariant to the preconditioner —
 see wlsqm_tpu/ops/ruiz.py).  ALGO_ITERATIVE's stagnation-controlled
 ``lax.while_loop`` supports forward mode only; reverse-mode callers use
 the basic algorithm (the fixed point is the same on exact-polynomial
-data).  The Pallas kernel body itself has no AD rules, but
-``fit_pallas_diffable`` wraps it in a ``custom_vjp`` whose backward pass
-is the kernel's own sensitivity array (exact for the linear-in-data
-basic fit) — data adjoints at kernel speed, geometry gradients stopped;
-traced ``fit_many`` calls route to the engine, which differentiates in
-both.  See docs/autodiff.md for the full map.
+data).  Every public entry point runs the engine, so ``jax.grad``
+through ``fit_many`` differentiates with respect to both data and
+geometry.  See docs/autodiff.md for the full map.
 """
+
+import warnings
 
 import numpy as np
 import pytest
@@ -95,9 +94,8 @@ def test_grad_wrt_geometry_matches_fd(rng):
 
 
 def test_grad_through_fit_many_traced(rng):
-    """jax.grad over the public fit_many: tracing degrades backend="auto"
-    to the engine (with its documented warning) and the gradient matches
-    the engine-direct one."""
+    """jax.grad over the public fit_many traces the engine directly (no
+    routing warning) and the gradient matches the engine-direct one."""
     B, K = 4, 20
     xk, fk = _batch(rng, B, K)
     a = _engine_args(B, K, order=2)
@@ -109,7 +107,8 @@ def test_grad_through_fit_many_traced(rng):
     def loss_engine(f):
         return (_fit(xk, f, a, precision="f64")[0][:, :6] ** 2).sum()
 
-    with pytest.warns(UserWarning, match="trac"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         g_pub = jax.grad(loss_public)(fk)
     g_eng = jax.grad(loss_engine)(fk)
     assert float(jnp.abs(g_pub - g_eng).max()) < 1e-9 * max(
@@ -317,73 +316,6 @@ def test_adjoint_through_time_stepping(rng):
     assert abs(float(g[17]) - float(fd)) < 1e-5 * max(abs(float(fd)), 1.0)
 
 
-@pytest.mark.full
-def test_kernel_adjoint_matches_engine_grad(rng):
-    """fit_pallas_diffable: reverse mode through the fused kernel (via
-    its sensitivity-array VJP) matches the engine gradient to kernel
-    (interpret-mode f32) precision, and geometry gradients are exactly
-    stopped."""
-    from wlsqm_tpu.ops.pallas_fit import TILE, fit_pallas_diffable
-
-    B, K = TILE, 16
-    xk, fk = _batch(rng, B, K)
-    nk = jnp.full((B,), K, jnp.int32)
-    xi = jnp.zeros((B, 2))
-
-    def loss_kernel(xk_, f):
-        fi = fit_pallas_diffable(xk_, f, nk, xi, dimension=2, order=2,
-                                 weighting=defs.WEIGHT_UNIFORM,
-                                 interpret=True)
-        return (fi ** 2).sum()
-
-    a = _engine_args(B, K, order=2, weighting=defs.WEIGHT_UNIFORM)
-
-    def loss_engine(f):
-        return (_fit(xk, f, a, precision="f64")[0][:, :6] ** 2).sum()
-
-    gk_fk, gk_xk = jax.grad(loss_kernel, argnums=(1, 0))(xk, fk)
-    ge = jax.grad(loss_engine)(fk)
-    scale = float(jnp.abs(ge).max())
-    assert float(jnp.abs(gk_fk - ge).max()) < 5e-5 * scale
-    assert float(jnp.abs(gk_xk).max()) == 0.0  # stopped, exact zeros
-
-
-@pytest.mark.full
-def test_kernel_adjoint_with_knowns(rng):
-    """Known DOFs are constants under the kernel VJP: the NaN sens rows
-    contribute exactly zero data gradient, unknown-DOF grads match the
-    engine."""
-    from wlsqm_tpu.ops.pallas_fit import TILE, fit_pallas_diffable
-
-    B, K = TILE, 16
-    xk, fk = _batch(rng, B, K)
-    nk = jnp.full((B,), K, jnp.int32)
-    xi = jnp.zeros((B, 2))
-    kn = int(defs.b2_F)
-    gi = jnp.zeros((B, defs.number_of_dofs(2, 2))).at[:, defs.i2_F].set(0.3)
-
-    def loss_kernel(f):
-        fi = fit_pallas_diffable(xk, f, nk, xi, gi, dimension=2, order=2,
-                                 weighting=defs.WEIGHT_UNIFORM,
-                                 knowns=kn, interpret=True)
-        return (fi ** 2).sum()
-
-    a = _engine_args(B, K, order=2, knowns=kn,
-                     weighting=defs.WEIGHT_UNIFORM)
-    NO2 = defs.number_of_dofs(2, 2)
-    gi_full = a["fi0"].at[:, defs.i2_F].set(0.3)
-    a = dict(a, fi0=gi_full)
-
-    def loss_engine(f):
-        return (_fit(xk, f, a, precision="f64")[0][:, :NO2] ** 2).sum()
-
-    gk = jax.grad(loss_kernel)(fk)
-    ge = jax.grad(loss_engine)(fk)
-    assert bool(jnp.isfinite(gk).all())  # NaN rows zeroed, not propagated
-    scale = float(jnp.abs(ge).max())
-    assert float(jnp.abs(gk - ge).max()) < 5e-5 * scale
-
-
 def test_grad_composes_with_jit_and_vmap(rng):
     """grad-of-jit and vmap-of-grad both work over the engine fit."""
     B, K = 4, 20
@@ -407,52 +339,3 @@ def test_grad_composes_with_jit_and_vmap(rng):
     assert bool(jnp.isfinite(gv).all())
 
 
-def test_kernel_adjoint_rejects_unsupported_config(rng):
-    """Configs the fused do_sens kernel cannot take raise a clear
-    ValueError instead of silently falling back."""
-    from wlsqm_tpu.ops.pallas_fit import TILE, fit_pallas_diffable
-
-    B, K = TILE, 16
-    xk, fk = _batch(rng, B, K)
-    nk = jnp.full((B,), K, jnp.int32)
-    xi = jnp.zeros((B, 2))
-    with pytest.raises(ValueError, match="unsupported"):
-        fit_pallas_diffable(xk, fk, nk, xi, dimension=2, order=2,
-                            weighting=999, interpret=True)
-
-
-@pytest.mark.parametrize("dim,order,weighting", [
-    (1, 3, defs.WEIGHT_UNIFORM),
-    pytest.param(2, 4, defs.WEIGHT_CENTER, marks=pytest.mark.full),
-    pytest.param(3, 2, defs.WEIGHT_CENTER, marks=pytest.mark.full),
-])
-def test_kernel_adjoint_parity_across_configs(rng, dim, order, weighting):
-    """The kernel VJP equals the engine gradient across dimensions and
-    orders (small batches via tile_s=2)."""
-    from wlsqm_tpu.ops.pallas_fit import fit_pallas_diffable
-
-    B, K = 256, 24
-    xk = jnp.asarray(rng.uniform(-1.0, 1.0, (B, K, dim)))
-    fk = jnp.sin(1.1 * xk[..., 0]) * jnp.cos(0.9 * xk.sum(-1))
-    nk = jnp.full((B,), K, jnp.int32)
-    xi = jnp.zeros((B, dim))
-    NO = defs.number_of_dofs(dim, order)
-
-    def loss_kernel(f):
-        fi = fit_pallas_diffable(xk, f, nk, xi, dimension=dim, order=order,
-                                 weighting=weighting, interpret=True,
-                                 tile_s=2)
-        return (fi ** 2).sum()
-
-    def loss_engine(f):
-        fi, _s, _i, _c = engine.fit_batch(
-            xk, f, nk, xi, jnp.zeros((B, NO)),
-            jnp.full((B,), order, jnp.int32), jnp.zeros((B,), jnp.int64),
-            jnp.full((B,), weighting, jnp.int32),
-            dimension=dim, NO=NO, precision="f64")
-        return (fi ** 2).sum()
-
-    gk = jax.grad(loss_kernel)(fk)
-    ge = jax.grad(loss_engine)(fk)
-    scale = float(jnp.abs(ge).max())
-    assert float(jnp.abs(gk - ge).max()) < 5e-5 * scale

@@ -71,7 +71,7 @@ def _fit_ladder(f, xi, uk, order, dim):
     fk = f(xk)
     res = wt.fit_many(xk, fk, np.broadcast_to(xi, (B, dim)).copy(),
                       order=order, weighting=wt.WEIGHT_UNIFORM,
-                      backend="xla", precision="f64")
+                      precision="f64")
     return np.asarray(res.fi)
 
 
@@ -147,7 +147,7 @@ def test_center_weighting_preserves_rates(rng, order):
     xk = xi[None, None, :] + HS[:, None, None] * uk[None, :, :]
     res = wt.fit_many(xk, f(xk), np.broadcast_to(xi, (B, 2)).copy(),
                       order=order, weighting=wt.WEIGHT_CENTER,
-                      backend="xla", precision="f64")
+                      precision="f64")
     s, c, e = np.sin(xi[0]), np.cos(xi[0]), np.exp(0.5 * xi[1])
     truth = np.array([s * e, c * e, 0.5 * s * e])
     slopes = _slopes(np.abs(np.asarray(res.fi)[:, :3] - truth), [0, 1, 1])

@@ -1,9 +1,8 @@
 """Persistence of the ds-fidelity canary verdict across processes.
 
-The canary (engine_ds.ds_backend_ok) costs two engine compiles per process
-on non-TPU backends; when the persistent cache is enabled
-(WLSQM_TPU_COMPILE_CACHE), the verdict is stored on disk keyed by
-(canary version, backend, jax version) so the compiles are one-time per
+The canary (engine_ds.ds_backend_ok) costs two engine compiles per process;
+the verdict is stored on disk in the persistent cache directory, keyed by
+(canary version, backend, jax version), so the compiles are one-time per
 machine — like the XLA compilation cache it shares the directory with.
 """
 
@@ -77,5 +76,8 @@ def test_store_path_follows_config(monkeypatch, tmp_path):
 
     monkeypatch.setattr(config, "_CACHE", str(tmp_path))
     assert engine_ds._canary_store() == str(tmp_path / "ds_canary.json")
-    monkeypatch.setattr(config, "_CACHE", None)
-    assert engine_ds._canary_store() is None
+    # the store's directory is created on first write
+    sub = tmp_path / "fresh"
+    monkeypatch.setattr(config, "_CACHE", str(sub))
+    engine_ds._persist_verdict("cpu", True)
+    assert sub.joinpath("ds_canary.json").exists()

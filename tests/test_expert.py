@@ -269,77 +269,25 @@ def test_interpolate_continuous_device_mode(rng):
     np.testing.assert_array_equal(np.isfinite(got), mask)
 
 
-def test_precision_f64_disables_kernel_routing(rng, monkeypatch):
-    """An explicit precision='f64' is an accuracy contract: solve() must
-    never route through the ds-grade kernel, regardless of backend or the
-    compat knob (reference f64 solve: wlsqm/fitter/impl.pyx:731-846)."""
-    import jax
-
-    from wlsqm_tpu import config
-    from wlsqm_tpu.ops import pallas_fit
-
-    B, K = pallas_fit.TILE, 30
-    xk = rng.uniform(-1, 1, (B, K, 2))
-
-    def mk(precision):
-        kw = {} if precision == "default" else {"precision": precision}
-        es = wt.ExpertSolver(
-            dimension=2, nk=np.full(B, K, np.int32),
-            order=np.full(B, 2, np.int32), knowns=np.zeros(B, np.int64),
-            weighting_method=np.full(B, wt.WEIGHT_UNIFORM, np.int32), **kw)
-        es.prepare(xi=np.zeros((B, 2)), xk=xk)
-        return es
-
-    fk = np.sin(xk[..., 0]) * np.cos(xk[..., 1])
-
-    # pretend we are on an accelerator so only the precision logic decides
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert not mk("f64")._kernel_eligible(fk)
-    assert mk("default")._kernel_eligible(fk)
-    assert mk("ds")._kernel_eligible(fk)
-
-    # the documented compat knob disables auto routing but not explicit ds
-    monkeypatch.setattr(config, "_COMPAT_PRECISION", "f64")
-    assert not mk("default")._kernel_eligible(fk)
-    assert not mk("f64")._kernel_eligible(fk)
-
-
 def test_precision_f64_bit_identical_under_compat_knob(rng):
-    """precision='f64' output is bit-identical whichever way the compat
-    routing knob points (the knob must be a no-op for explicit f64)."""
-    from wlsqm_tpu import config
-
+    """The default precision (None) is the native-f64 engine: its output
+    is bit-identical to an explicit precision='f64' solver."""
     B, K = 8, 30
     xk = rng.uniform(-1, 1, (B, K, 2))
     fk = np.sin(xk[..., 0]) * np.cos(xk[..., 1])
 
-    def run():
+    def run(**kw):
         es = wt.ExpertSolver(
             dimension=2, nk=np.full(B, K, np.int32),
             order=np.full(B, 4, np.int32), knowns=np.zeros(B, np.int64),
-            weighting_method=np.full(B, wt.WEIGHT_CENTER, np.int32),
-            precision="f64")
+            weighting_method=np.full(B, wt.WEIGHT_CENTER, np.int32), **kw)
         es.prepare(xi=np.zeros((B, 2)), xk=xk)
+        assert es.prepared.precision == "f64"
         fi = np.zeros((B, 15))
         es.solve(fk=fk, fi=fi)
         return fi
 
-    old = config.compat_precision()
-    try:
-        config.set_compat_precision("ds")
-        a = run()
-        config.set_compat_precision("f64")
-        b = run()
-    finally:
-        config.set_compat_precision(old)
-    np.testing.assert_array_equal(a, b)
-
-
-def test_set_compat_precision_validates():
-    from wlsqm_tpu import config
-
-    with pytest.raises(ValueError):
-        config.set_compat_precision("bogus")
+    np.testing.assert_array_equal(run(), run(precision="f64"))
 
 
 def test_iterative_with_sens_matches_basic_sens(rng):

@@ -1,11 +1,11 @@
-"""Randomized cross-check of the batched engine against a per-case NumPy
-oracle.
+"""Randomized cross-check of the batched engine against the per-case
+SciPy reference (tests/scipy_reference.py).
 
-The oracle re-implements the reference's per-case pipeline (reference:
-wlsqm/fitter/impl.pyx — make_c / make_A / solve with algebraic knowns
-elimination, wlsqm/fitter/infra.pyx:668-702 weights) directly in NumPy
-with explicit index remapping (o2r/r2o), i.e. structurally UNLIKE the
-engine's masked static-shape formulation — shared bugs are unlikely.
+The reference solves each case on its own, sliced to its valid
+neighbours, by a column-scaled SVD least-squares solve with algebraic
+knowns elimination (reference: wlsqm/fitter/impl.pyx — make_c / make_A /
+solve, wlsqm/fitter/infra.pyx:668-702 weights), i.e. structurally UNLIKE
+the engine's masked static-shape formulation — shared bugs are unlikely.
 Random configurations sweep dimension, order, neighbor count, raggedness,
 weighting, and knowns bitmasks.
 """
@@ -13,46 +13,19 @@ weighting, and knowns bitmasks.
 import numpy as np
 import pytest
 
+import scipy_reference
 import wlsqm_tpu as wt
-from wlsqm_tpu.fitter import defs, tables
+from wlsqm_tpu.fitter import defs
 
 
 def _oracle_case(xk, fk, xi, nk, order, knowns, weighting, dimension,
                  fi_init=None):
-    """Solve one case the reference way: reduced system + LAPACK.
-
-    ``fi_init`` carries prescribed values for known DOFs; their
-    contribution is eliminated into the RHS exactly as the reference does
-    (reference: wlsqm/fitter/impl.pyx:789-818).
-    """
+    """The reference's DOFs of one (possibly ragged) case; known DOFs keep
+    their ``fi_init`` values (zeros if None)."""
     no = defs.number_of_dofs(dimension, order)
-    exp = tables.EXPONENTS[dimension][:no]
-    invf = tables.INV_FACT[dimension][:no]
-
-    d = xk[:nk] - xi[None, :]
-    c = np.ones((nk, no))
-    for j in range(no):
-        for a in range(dimension):
-            c[:, j] *= d[:, a] ** exp[j, a]
-        c[:, j] *= invf[j]
-
-    d2 = (d * d).sum(-1)
-    if weighting == defs.WEIGHT_CENTER:
-        t = 1.0 - np.sqrt(d2 / d2.max())
-        w = 1e-4 + (1.0 - 1e-4) * t * t
-    else:
-        w = np.ones(nk)
-
-    unknown = [j for j in range(no) if not (knowns >> j) & 1]
-    known = [j for j in range(no) if (knowns >> j) & 1]
-    fi = np.zeros(no) if fi_init is None else fi_init[:no].astype(np.float64)
-    fi[unknown] = 0.0
-    resid = fk[:nk] - c[:, known] @ fi[known]
-    A = (c[:, unknown].T * w) @ c[:, unknown]
-    b = (c[:, unknown].T * w) @ resid
-    sol = np.linalg.solve(A, b)
-    fi[unknown] = sol
-    return fi
+    fi_init = np.zeros(no) if fi_init is None else fi_init
+    return scipy_reference.fit_case(xk[:nk], fk[:nk], xi, order, knowns,
+                                    weighting, dimension, fi_init)
 
 
 CONFIGS = [
@@ -92,9 +65,9 @@ def _problem(rng, dimension, order, K, ragged):
 def _check(got, xk, fk, xi, nk, order, knowns, weighting, dimension,
            fi_init=None):
     no = defs.number_of_dofs(dimension, order)
-    # the oracle solves the UNSCALED normal equations; at order 4 their
-    # conditioning (cond ~ 1e7+) admits ~1e-9 f64 discrepancy between two
-    # correct algorithms, so the bar loosens with the order
+    # at order 4 the normal equations' conditioning (cond ~ 1e7+) admits
+    # ~1e-9 f64 discrepancy between two correct algorithms, so the bar
+    # loosens with the order
     rtol = 1e-9 if order < 4 else 5e-8
     for b in range(len(got)):
         want = _oracle_case(xk[b], fk[b], xi[b], int(nk[b]), order, knowns,

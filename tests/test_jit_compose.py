@@ -1,8 +1,8 @@
-"""fit_many composes with jit / scan / shard_map (round-2 VERDICT weak #1).
+"""fit_many composes with jit / scan / shard_map.
 
-``backend="auto"`` inspects concrete data; under a trace it must degrade
-gracefully (warn + XLA engine), and the documented fast traced path is a
-static :class:`wlsqm_tpu.FitPlan` computed eagerly via ``plan_fit_many``.
+Every call runs the masked engine, so a traced ``fit_many`` needs no
+host-side data inspection; a static :class:`wlsqm_tpu.FitPlan` from
+``plan_fit_many`` replays the same engine call.
 """
 
 import warnings
@@ -13,9 +13,6 @@ import jax.numpy as jnp
 import pytest
 
 import wlsqm_tpu as wt
-from wlsqm_tpu import api
-from wlsqm_tpu.fitter import defs, ladder
-from wlsqm_tpu.ops import pallas_fit
 
 
 def _problem(rng, B, K=20):
@@ -26,15 +23,16 @@ def _problem(rng, B, K=20):
 
 
 def test_jit_fit_many_auto_warns_and_matches(rng):
-    """jax.jit(fit_many) with the default backend compiles, warns about the
-    degraded routing, and matches the eager XLA-engine result exactly."""
+    """jax.jit(fit_many) with the default backend compiles without any
+    routing warning (there is no data-dependent routing left to degrade)
+    and matches the eager engine result exactly."""
     xk, fk, xi = _problem(rng, 96)
-    ref = wt.fit_many(xk, fk, xi, order=2, backend="xla")
+    ref = wt.fit_many(xk, fk, xi, order=2)
     jfn = jax.jit(lambda a, b, c: wt.fit_many(a, b, c, order=2).fi)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         out = jfn(xk, fk, xi)
-    assert any("plan_fit_many" in str(w.message) for w in caught)
+    assert not any("plan_fit_many" in str(w.message) for w in caught)
     np.testing.assert_array_equal(np.asarray(out), np.asarray(ref.fi))
 
 
@@ -67,31 +65,6 @@ def test_plan_under_jit_and_scan(rng):
     np.testing.assert_array_equal(np.asarray(fis[0]), np.asarray(eager.fi))
     ref1 = wt.fit_many(xk, fk * 2.0, xi, order=2, plan=plan)
     np.testing.assert_array_equal(np.asarray(fis[1]), np.asarray(ref1.fi))
-
-
-def test_plan_kernel_route_under_jit(rng, monkeypatch):
-    """A kernel-routed plan replays through the fused kernel inside jit
-    (interpreter-backed on CPU via the spy)."""
-    calls = []
-    orig = pallas_fit.fit_pallas
-
-    def spy(*args, **kw):
-        calls.append(1)
-        kw["interpret"] = True
-        return orig(*args, **kw)
-
-    monkeypatch.setattr(pallas_fit, "fit_pallas", spy)
-    B = pallas_fit.TILE
-    xk, fk, xi = _problem(rng, B, K=30)
-    plan = api.FitPlan(route=ladder.Route(path="kernel", refine_steps=2))
-    jfn = jax.jit(
-        lambda a, b, c: wt.fit_many(a, b, c, order=2, plan=plan).fi)
-    out = jfn(xk, fk, xi)
-    assert calls  # the kernel ran inside the traced computation
-    ref = wt.fit_many(xk, fk, xi, order=2, backend="xla")
-    rel = (np.abs(np.asarray(out) - np.asarray(ref.fi)).max()
-           / np.abs(np.asarray(ref.fi)).max())
-    assert rel < 5e-5  # interpret-mode f32-grade bound
 
 
 @pytest.mark.skipif(len(jax.devices()) < 2,

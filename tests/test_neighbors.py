@@ -9,7 +9,7 @@ from wlsqm_tpu.utils import neighbors
 def test_knn_backends_agree(rng):
     pts = rng.uniform(-1, 1, (500, 2))
     q = rng.uniform(-1, 1, (40, 2))
-    idx_t, d2_t = neighbors.knn(pts, q, k=8, backend="tpu")
+    idx_t, d2_t = neighbors.knn(pts, q, k=8, backend="device")
     idx_h, d2_h = neighbors.knn(pts, q, k=8, backend="host")
     # index sets may be permuted among equal distances; compare distances
     np.testing.assert_allclose(

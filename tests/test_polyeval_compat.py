@@ -83,8 +83,7 @@ def test_interpolate_many_batches_per_case(rng):
     xi = rng.uniform(-1, 1, (B, 2))
     # derivative values of the same polynomial at each xi (via one fit)
     xk = xi[:, None, :] + rng.uniform(-0.4, 0.4, (B, 12, 2))
-    res = wt.fit_many(xk, f(xk), xi, order=2, backend="xla",
-                      precision="f64")
+    res = wt.fit_many(xk, f(xk), xi, order=2, precision="f64")
     fi = np.asarray(res.fi)
     x = rng.uniform(-1, 1, (B, M, 2))
     got = np.asarray(interp.interpolate_many(fi, xi, x, dimension=2,

@@ -1,7 +1,7 @@
 """Precision modes: mixed and fast must agree with the f64 reference path.
 
-On TPU, native f64 is software-emulated and slow; "mixed" keeps the f64
-assembly but factors in f32 with f64-residual refinement, and "fast" runs
+These are explicit emulation modes for devices whose f64 rate is low;
+"mixed" keeps the f64 assembly but factors in f32 with f64-residual refinement, and "fast" runs
 assembly/Ruiz/Cholesky all in f32, recovering f64-class accuracy by
 refinement through the f64 basis rows.  Both must match the all-f64 path to
 well inside the 1e-10 parity bar.

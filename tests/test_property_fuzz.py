@@ -1,8 +1,8 @@
-"""Property-based fuzz of the compat fit path against the NumPy oracle.
+"""Property-based fuzz of the compat fit path against the SciPy reference.
 
 Hypothesis drives random (dimension, order, K, raggedness, weighting,
 knowns, geometry-scale) combinations through ``wt.fit_many`` and checks
-every case against the same independent per-case NumPy/LAPACK pipeline
+every case against the same independent per-case SciPy reference
 the deterministic fuzz uses (tests/test_fuzz_oracle.py) — shrinkage gives
 minimal failing configurations for free.  Example counts are bounded so
 the suite stays CI-sized; the deterministic configs remain the coverage
@@ -21,6 +21,47 @@ import wlsqm_tpu as wt  # noqa: E402
 from wlsqm_tpu.fitter import defs  # noqa: E402
 
 from test_fuzz_oracle import _oracle_case  # noqa: E402
+
+
+def _cond_amp(xk, nk, xi, order, weighting, *, dimension, knowns=0):
+    """Per-case (cond2(A_jacobi), inv_s**order) of the masked normal matrix.
+
+    cond is the 2-norm condition number of the Jacobi-scaled normal
+    matrix over the unknown DOFs; amp is the amplification of the
+    highest-degree DOFs from a neighborhood radius below 1.
+    """
+    from wlsqm_tpu.fitter import engine, tables
+
+    B, K, _ = xk.shape
+    NO = defs.number_of_dofs(dimension, order)
+    exp = tables.EXPONENTS[dimension][:NO]
+    delta = xk - xi[:, None, :]
+    kmask = np.arange(K)[None, :] < nk[:, None]
+    delta = np.where(kmask[:, :, None], delta, 0.0)
+    d2 = (delta ** 2).sum(-1)
+    h2 = np.where(kmask, d2, 0.0).max(-1)
+    inv_s = np.exp2(-np.ceil(0.5 * np.log2(np.where(h2 > 0, h2, 1.0))))
+
+    c = np.ones(delta.shape[:2] + (NO,))
+    for a in range(dimension):
+        c = c * delta[..., a:a + 1] ** exp[:, a]
+    c = c * tables.INV_FACT[dimension][:NO]
+    unknown = np.array([not (knowns >> j) & 1 for j in range(NO)])
+
+    max_d2 = h2[:, None]
+    t = 1.0 - np.sqrt(d2 / np.where(max_d2 > 0, max_d2, 1.0))
+    w = (engine.WEIGHT_ALPHA + engine.WEIGHT_BETA * t * t
+         if weighting == defs.WEIGHT_CENTER else np.ones_like(d2))
+    w = np.where(kmask, w, 0.0)
+
+    A = np.einsum("bkj,bk,bkm->bjm", c, w, c)
+    act2 = unknown[:, None] & unknown[None, :]
+    A = np.where(act2, A, 0.0) + np.diag(~unknown).astype(float)[None]
+    diag = np.einsum("bjj->bj", A)
+    s = 1.0 / np.sqrt(np.where(diag > 0, diag, 1.0))
+    cond = np.linalg.cond(A * s[:, :, None] * s[:, None, :])
+    amp = np.maximum(inv_s, 1.0) ** float(order)
+    return cond, amp
 
 
 @st.composite
@@ -76,17 +117,14 @@ def test_fit_many_matches_oracle(cfg):
     # two correct f64 algorithms disagree by ~u64 * cond * amp on randomly
     # conditioned geometry (docs/theory.md section 7), so the bar scales
     # with the probed conditioning of each case instead of being fixed
-    from wlsqm_tpu.fitter import condprobe
-
-    cond, amp = condprobe._cond_amp(
-        xk, nk, xi, order, weighting, dimension=dimension,
-        knowns=knowns, sample=B)
+    cond, amp = _cond_amp(xk, nk, xi, order, weighting,
+                          dimension=dimension, knowns=knowns)
     for b in range(B):
         want = _oracle_case(xk[b], fk[b], xi[b], int(nk[b]), order, knowns,
                             weighting, dimension, fi_init[b])
         # coefficient calibrated by fuzzing: hypothesis found a ragged
-        # 1D order-3 case where the engine and the LAPACK oracle differ
-        # by 1.3e-14 * cond * amp (~57 ulp/unit) — both correct f64
+        # 1D order-3 case where the engine and an unscaled LAPACK
+        # normal-equations solve differ by 1.3e-14 * cond * amp — both correct f64
         # pipelines, different elimination orders; 2e-14 covers the
         # observed scatter with margin while still scaling with the
         # probed conditioning

@@ -94,28 +94,6 @@ def test_pad_cases():
     assert sharding.pad_cases(1, 8) == 8
 
 
-@pytest.mark.full
-@needs_devices
-def test_sharded_pallas_equals_single_device(rng):
-    from wlsqm_tpu.ops.pallas_fit import TILE, fit_pallas
-
-    import jax.numpy as jnp
-
-    B, K = TILE * len(jax.devices()), 16
-    xk = jnp.asarray(rng.uniform(-1, 1, (B, K, 2)))
-    fk = jnp.asarray(np.sin(np.asarray(xk)[..., 0]))
-    nk = jnp.full((B,), K, np.int32)
-    xi = jnp.zeros((B, 2))
-
-    mesh = sharding.make_mesh()
-    fi_sh = sharding.sharded_fit_pallas(
-        mesh, xk, fk, nk, xi, dimension=2, order=2,
-        weighting=wt.WEIGHT_UNIFORM, interpret=True)
-    fi_1 = fit_pallas(xk, fk, nk, xi, dimension=2, order=2,
-                      weighting=wt.WEIGHT_UNIFORM, interpret=True)
-    np.testing.assert_array_equal(np.asarray(fi_sh), np.asarray(fi_1))
-
-
 def test_sharded_interpolate_continuous(rng):
     """Sharded blending (with psum) == single-device functional result."""
     from wlsqm_tpu.fitter.interp import interpolate_continuous
@@ -142,7 +120,7 @@ def test_sharded_knn_matches_single_device(rng):
     pts = rng.uniform(-1, 1, (N, 2))
     q = rng.uniform(-1, 1, (M, 2))
 
-    idx1, d1 = neighbors.knn(pts, q, k, backend="tpu")
+    idx1, d1 = neighbors.knn(pts, q, k, backend="device")
     mesh = sharding.make_mesh()
     idx2, d2 = sharding.sharded_knn(mesh, pts, q, k)
 
@@ -213,33 +191,6 @@ def test_sharded_gather_values_matches_global(rng):
 
 
 @needs_devices
-def test_sharded_gather_values_window_plan(rng):
-    """With a GatherPlan the shard-local gathers run the window kernel
-    (per-shard runtime metadata + dynamic overflow patch) and still
-    reproduce plain fancy indexing."""
-    import jax.numpy as jnp
-
-    from wlsqm_tpu.ops import gather as gth
-
-    n, K, F = 2048, 8, 2
-    pts = rng.uniform(-1, 1, (n, 2))
-    pts = pts[gth.morton_order(pts)]
-    d2 = ((pts[:, None, :] - pts[None, :, :]) ** 2).sum(-1)
-    idx = np.argsort(d2, axis=1)[:, 1:K + 1].astype(np.int32)
-    B = n
-    plan = gth.plan_window_gather(idx, n, window=256)
-    assert plan is not None and plan.nblk % 8 == 0
-    vals = rng.standard_normal((n, F))
-    mesh = sharding.make_mesh()
-    got = sharding.sharded_gather_values(mesh, jnp.asarray(vals),
-                                         jnp.asarray(idx), plan=plan)
-    assert got.shape == (B, K, F)
-    # the f64 payload rides the (hi, lo) pair encoding: 2^-48 relative
-    np.testing.assert_allclose(np.asarray(got), vals[idx],
-                               rtol=4e-15, atol=1e-14)
-
-
-@needs_devices
 def test_sharded_ibvp_step_matches_single_device(rng):
     """A full sharded IBVP time step (shard-local gather + case-sharded
     prepared solve, multi-field) reproduces the single-device step
@@ -280,97 +231,6 @@ def test_sharded_ibvp_step_matches_single_device(rng):
 
 @pytest.mark.full
 @needs_devices
-def test_sharded_kernel_adjoint_matches_single_device(rng):
-    """jax.grad through shard_map(fit_pallas_diffable) over the case
-    axis is bit-identical to the single-device gradient: the VJP (one
-    do_sens launch + einsum) is per-case, so data-parallel adjoint
-    loops scale with zero collectives."""
-    import jax.numpy as jnp
-    from jax.sharding import PartitionSpec as P
-
-    from wlsqm_tpu.fitter import defs
-    from wlsqm_tpu.ops.pallas_fit import fit_pallas_diffable
-
-    ndev = len(jax.devices())
-    B, K = 512 * ndev, 12   # tile_s=4 -> 512-case tiles per shard
-    xk = jnp.asarray(rng.uniform(-1, 1, (B, K, 2)))
-    fk = jnp.sin(xk[..., 0]) * jnp.cos(xk[..., 1])
-    nk = jnp.full((B,), K, jnp.int32)
-    xi = jnp.zeros((B, 2))
-
-    def local_loss(xk, fk, nk, xi):
-        fi = fit_pallas_diffable(xk, fk, nk, xi, dimension=2, order=2,
-                                 weighting=defs.WEIGHT_CENTER,
-                                 interpret=True, tile_s=4)
-        return (fi ** 2).sum()
-
-    mesh = sharding.make_mesh()
-    spec = P(sharding.CASE_AXIS)
-
-    # out_specs=P() needs a replicated value: psum the per-shard losses
-    def local_loss_psum(xk, fk, nk, xi):
-        return jax.lax.psum(local_loss(xk, fk, nk, xi),
-                            sharding.CASE_AXIS)
-
-    def global_loss(fk):
-        return jax.shard_map(
-            local_loss_psum, mesh=mesh, in_specs=(spec,) * 4,
-            out_specs=P(), check_vma=False)(xk, fk, nk, xi)
-
-    g_sh = jax.jit(jax.grad(global_loss))(fk)
-    g_1 = jax.jit(jax.grad(
-        lambda f: local_loss(xk, f, nk, xi)))(fk)
-    np.testing.assert_array_equal(np.asarray(g_sh), np.asarray(g_1))
-
-
-@pytest.mark.full
-@needs_devices
-@pytest.mark.parametrize("kprec,assembly", [
-    ("ds", "rows"), ("ds", "moments"), ("ts", "moments")])
-def test_planned_kernel_route_under_shard_map(rng, kprec, assembly):
-    """fit_many(plan=) with a kernel Route (ds and ts arithmetic, both
-    assemblies) composes with shard_map on the 8-device mesh and is
-    bit-identical to the same planned call on one device — the
-    multi-chip analogue of the reference's parallel ≡ serial contract
-    for the AUTO-ROUTED kernel path (reference:
-    tests/test_parallel.py)."""
-    import jax
-    import jax.numpy as jnp
-    from jax.sharding import PartitionSpec as P
-
-    from wlsqm_tpu import api
-    from wlsqm_tpu.fitter import ladder
-    from wlsqm_tpu.ops.pallas_fit import TILE
-
-    D = 8
-    B, K, order = TILE * D, 14, 2
-    xi = rng.uniform(-1, 1, (B, 2))
-    xk = xi[:, None, :] + rng.uniform(-0.4, 0.4, (B, K, 2))
-    fk = np.sin(xk[..., 0]) * np.cos(xk[..., 1])
-    nk = np.full(B, K, np.int32)
-    plan = api.FitPlan(route=ladder.Route(
-        path="kernel", refine_steps=2, kernel_precision=kprec,
-        assembly=assembly))
-
-    def run(xk_, fk_, nk_, xi_):
-        res = api.fit_many(xk_, fk_, xi_, nk=nk_, order=order,
-                           weighting=defs.WEIGHT_CENTER, plan=plan)
-        return res.fi
-
-    args = (jnp.asarray(xk), jnp.asarray(fk), jnp.asarray(nk),
-            jnp.asarray(xi))
-    fi_1 = run(*args)
-
-    mesh = sharding.make_mesh()
-    spec = P(sharding.CASE_AXIS)
-    fn = jax.shard_map(run, mesh=mesh, in_specs=(spec,) * 4,
-                       out_specs=spec, check_vma=False)
-    fi_8 = jax.jit(fn)(*args)
-    np.testing.assert_array_equal(np.asarray(fi_1), np.asarray(fi_8))
-
-
-@pytest.mark.full
-@needs_devices
 def test_plan_fit_many_device_count_invariance(rng):
     """The full plan_fit_many -> fit_many(plan=) pipeline gives
     bit-identical DOFs on 1 vs 8 devices (planned on concrete data,
@@ -380,10 +240,9 @@ def test_plan_fit_many_device_count_invariance(rng):
     from jax.sharding import PartitionSpec as P
 
     from wlsqm_tpu import api
-    from wlsqm_tpu.ops.pallas_fit import TILE
 
     D = 8
-    B, K, order = TILE * D, 14, 2
+    B, K, order = 1024 * D, 14, 2
     xi = rng.uniform(-1, 1, (B, 2))
     xk = xi[:, None, :] + rng.uniform(-0.3, 0.3, (B, K, 2))
     fk = np.sin(xk[..., 0]) * np.cos(xk[..., 1])

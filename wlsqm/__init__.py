@@ -1,4 +1,4 @@
-"""Drop-in ``wlsqm`` namespace backed by the TPU-native wlsqm_tpu framework.
+"""Drop-in ``wlsqm`` namespace backed by the JAX wlsqm_tpu framework.
 
 Reference users can ``import wlsqm`` unchanged; every public name
 (fit_* family, ExpertSolver, interpolate_fit, DOF constants, bitmasks,

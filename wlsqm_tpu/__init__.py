@@ -1,6 +1,6 @@
-"""wlsqm_tpu — TPU-native Weighted Least SQuares Meshless framework.
+"""wlsqm_tpu — batched JAX Weighted Least SQuares Meshless framework.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the reference
+A from-scratch JAX/XLA rebuild of the capabilities of the reference
 ``wlsqm`` package (Weighted Least SQuares Meshless: a fast and accurate
 meshless interpolator/differentiator for scalar data on scattered 1D/2D/3D
 point clouds).  For each reference point xi, a local polynomial surrogate of
@@ -20,17 +20,13 @@ Two API layers:
 * **Functional JAX layer** (:mod:`wlsqm_tpu.api`,
   :mod:`wlsqm_tpu.fitter.engine`): pure, jittable, batch-first functions and
   the ``Prepared`` pytree for prepare-once/solve-many workflows, composable
-  with ``jax.jit`` / ``vmap`` / ``shard_map`` for multi-chip scaling
+  with ``jax.jit`` / ``vmap`` / ``shard_map`` for multi-device scaling
   (:mod:`wlsqm_tpu.parallel`).
 
 float64 mode is enabled at import (see :mod:`wlsqm_tpu.config`).
 """
 
 from wlsqm_tpu import config  # noqa: F401  (enables x64 first)
-from wlsqm_tpu.config import (  # noqa: F401
-    set_compat_precision,
-    compat_precision,
-)
 
 from wlsqm_tpu.fitter.defs import *  # noqa: F401,F403  constants + number_of_dofs
 from wlsqm_tpu.fitter.simple import *  # noqa: F401,F403  fit_* family
@@ -52,6 +48,5 @@ from wlsqm_tpu.api import (  # noqa: F401
     FitResult,
 )
 from wlsqm_tpu.fitter.engine import Prepared  # noqa: F401
-from wlsqm_tpu.warmup import warmup  # noqa: F401
 
 __version__ = "0.3.0"

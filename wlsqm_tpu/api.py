@@ -1,8 +1,10 @@
 """Functional JAX-native API for wlsqm_tpu.
 
-This is the idiomatic entry point for TPU users: pure functions over device
-arrays, composable with ``jax.jit`` / ``vmap`` / ``shard_map``.  The
-compatibility layer (:mod:`wlsqm_tpu.fitter.simple`,
+The idiomatic entry point: pure functions over device arrays, composable
+with ``jax.jit`` / ``vmap`` / ``shard_map``.  Every fit runs the masked
+batched engine (:mod:`wlsqm_tpu.fitter.engine`) on the default JAX device,
+in native float64 unless an emulation precision is requested explicitly.
+The compatibility layer (:mod:`wlsqm_tpu.fitter.simple`,
 :class:`wlsqm_tpu.fitter.expert.ExpertSolver`) is built on the same engine.
 
 Typical flow::
@@ -22,47 +24,39 @@ Typical flow::
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from functools import partial
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from wlsqm_tpu import config
-from wlsqm_tpu.fitter import defs, engine, ladder
+from wlsqm_tpu.fitter import defs, engine
 from wlsqm_tpu.fitter.interp import eval_fit
 from wlsqm_tpu.ops import solve as solve_ops
 
 __all__ = ["FitResult", "FitPlan", "fit", "fit_many", "fit_stream",
            "plan_fit_many", "prepare", "solve", "interpolate"]
 
+_PRECISIONS = (engine.PRECISION_F64, engine.PRECISION_MIXED,
+               engine.PRECISION_FAST, engine.PRECISION_DS)
+
 
 @dataclasses.dataclass(frozen=True)
 class FitPlan:
-    """A static, hashable routing decision for :func:`fit_many`.
+    """A static, hashable execution plan for :func:`fit_many`.
 
-    ``backend="auto"`` inspects concrete data on the host (conditioning
-    probe, bucketing) and therefore cannot run under ``jax.jit``.  A
-    FitPlan captures that decision *once*, eagerly, on representative
-    concrete data (:func:`plan_fit_many`); passing it back via
-    ``fit_many(..., plan=plan)`` replays the decision with zero host-side
-    data inspection, so the call traces cleanly under ``jit`` /
-    ``lax.scan`` / ``shard_map``.  The plan is valid for batches with the
-    same static configuration (dimension, order, knowns, weighting,
-    do_sens, iterative) and statistically similar geometry — e.g. every
-    chunk of one point cloud, or every time step of an IBVP loop.
+    Computed once by :func:`plan_fit_many` for one homogeneous static
+    configuration and passed back via ``fit_many(..., plan=plan)``.  It
+    names the engine precision the planned calls run at; being static and
+    hashable, it closes over cleanly in ``jax.jit`` / ``lax.scan`` /
+    ``shard_map`` bodies.
     """
 
-    route: ladder.Route
+    precision: str = engine.PRECISION_F64
 
     def __str__(self):  # pragma: no cover - cosmetic
-        r = self.route
-        if r.path == "xla":
-            extra = r.precision + (
-                "" if r.mixed_steps is None else f"({r.mixed_steps} sweeps)")
-        else:
-            extra = f"{r.kernel_precision}, {r.refine_steps} sweeps"
-        return f"FitPlan({r.path}: {extra})"
+        return f"FitPlan(engine: {self.precision})"
 
 
 @partial(
@@ -97,270 +91,13 @@ class FitResult:
         return jnp.isfinite(self.fi).all(axis=-1)
 
 
-def _run_kernel_group(xk, fk, nk, xi, fi_init, *, dim, order, knowns,
-                      weighting, route, refine_steps, do_sens, iterative,
-                      max_iter, interpret):
-    """Run one homogeneous group through the fused kernel.
-
-    Pads to a TILE multiple, dispatches either the plain kernel or the
-    ladder's kernel+outer-f64-refinement driver, and unpads.  Returns
-    (fi (B, no_g), iters (B,), sens (B, K, no_g) | None).  Fully
-    traceable (no host-side data inspection).
-    """
-    from wlsqm_tpu.ops import pallas_fit
-
-    B = xk.shape[0]
-    pad = (-B) % pallas_fit.TILE
-
-    def cat(a):
-        if a is None or not pad:
-            return a
-        return jnp.concatenate([a, jnp.repeat(a[:1], pad, axis=0)])
-
-    xk, fk, nk, xi, fi_init = map(cat, (xk, fk, nk, xi, fi_init))
-    rs = refine_steps if refine_steps is not None else route.refine_steps
-    rkw = {} if rs is None else dict(refine_steps=rs)
-    out = pallas_fit.fit_pallas_jit(
-        xk, fk, nk, xi, fi_init, dimension=dim, order=order,
-        weighting=weighting, knowns=knowns, interpret=interpret,
-        do_sens=do_sens, max_iter=(max_iter if iterative else 0),
-        precision=route.kernel_precision,
-        assembly=getattr(route, "assembly", "auto"), **rkw)
-    if not (iterative or do_sens):
-        out = (out,)
-    fi = out[0][:B]
-    nxt = 1
-    iters = jnp.zeros((B,), jnp.int32)
-    if iterative:
-        iters = out[nxt][:B]
-        nxt += 1
-    sens = out[nxt][:B] if do_sens else None
-    return fi, iters, sens
-
-
-def _run_kernel_split(xk, fk, nk, xi, fi_init, *, dim, order, knowns,
-                      weighting, route, interpret):
-    """Run one homogeneous group through the per-case certified split.
-
-    The moment kernel (in ``route.kernel_precision`` — "ds" or "dsts")
-    fits ALL cases and emits the per-case certification key; the cases
-    whose key exceeds ``route.split_edge`` — up to the static
-    ``route.tail_frac`` window — are re-solved by the ts moment kernel and
-    scattered over the fast result.  Shapes are static throughout
-    (threshold compaction via ``jnp.nonzero(size=...)``), so the route
-    traces under jit/scan/shard_map.  Certified cases take the fast
-    partition's envelope; tail cases take the batch-level ts route's —
-    per-case certification over EVERY case, which the sampled probe of
-    the batch-level routes cannot give (it can miss the conditioning
-    maximum entirely; the round-5 headline cloud's sampled max was
-    21,101 vs a true 50,876).  Basic algorithm only.  Returns
-    (fi (B, no_g), iters zeros, None) like :func:`_run_kernel_group`.
-    """
-    from wlsqm_tpu.ops import pallas_fit
-
-    B = xk.shape[0]
-    pad = (-B) % pallas_fit.TILE
-
-    def cat(a):
-        if a is None or not pad:
-            return a
-        return jnp.concatenate([a, jnp.repeat(a[:1], pad, axis=0)])
-
-    xk_p, fk_p, nk_p, xi_p, fi0_p = map(cat, (xk, fk, nk, xi, fi_init))
-    fi_fast, est = pallas_fit.fit_pallas_jit(
-        xk_p, fk_p, nk_p, xi_p, fi0_p, dimension=dim, order=order,
-        weighting=weighting, knowns=knowns, interpret=interpret,
-        precision=route.kernel_precision, assembly="moments",
-        refine_steps=route.refine_steps, emit_cond=True)
-    fi_fast, est = fi_fast[:B], est[:B]
-
-    k = max(1, min(int(np.ceil(route.tail_frac * B)), B))
-    bad = ~(est <= route.split_edge)   # NaN-keyed (degenerate) -> tail
-    (idx,) = jnp.nonzero(bad, size=k, fill_value=B)
-    idxc = jnp.minimum(idx, B - 1)     # clipped gather; fills are dropped
-    ts_route = ladder.Route(path="kernel", kernel_precision="ts",
-                            assembly="moments",
-                            refine_steps=route.tail_refine_steps)
-    fi_tail, _, _ = _run_kernel_group(
-        xk[idxc], fk[idxc], nk[idxc], xi[idxc],
-        None if fi_init is None else fi_init[idxc],
-        dim=dim, order=order, knowns=knowns, weighting=weighting,
-        route=ts_route, refine_steps=None, do_sens=False, iterative=False,
-        max_iter=0, interpret=interpret)
-    fi = fi_fast.at[idx].set(fi_tail, mode="drop")
-    return fi, jnp.zeros((B,), jnp.int32), None
-
-
-def _eager_split_group(xk, fk, nk, xi, fi_init, *, dim, order, knowns,
-                       weighting, prec, edge, tail_route):
-    """Eager (concrete-data) per-case split of one homogeneous group.
-
-    Unlike the planned :func:`_run_kernel_split`, the eager path reads
-    the kernel-emitted key back to the host and re-solves EXACTLY the
-    uncertified cases — no static tail window, no margin: every case's
-    result carries its own certified envelope (fast partition, ts tail,
-    or — for keys beyond even the ts envelope edge — the exact f64
-    engine, so no case ever rides an envelope that exceeds the bar).
-    """
-    from wlsqm_tpu.fitter import condprobe
-    from wlsqm_tpu.ops import pallas_fit
-
-    B = xk.shape[0]
-    pad = (-B) % pallas_fit.TILE
-
-    def cat(a):
-        if a is None or not pad:
-            return a
-        return jnp.concatenate([a, jnp.repeat(a[:1], pad, axis=0)])
-
-    xk_p, fk_p, nk_p, xi_p, fi0_p = map(cat, (xk, fk, nk, xi, fi_init))
-    steps = 3 if prec == "dsts" else condprobe.pick_steps_at_edge(edge)
-    fi_fast, est = pallas_fit.fit_pallas_jit(
-        xk_p, fk_p, nk_p, xi_p, fi0_p, dimension=dim, order=order,
-        weighting=weighting, knowns=knowns, interpret=False,
-        precision=prec, assembly="moments", refine_steps=steps,
-        emit_cond=True)
-    fi = fi_fast[:B]
-    est_np = np.asarray(est[:B])
-    bad = ~(est_np <= edge)
-    ts_edge = condprobe.est_certified_edges().get("ts")
-    f64_mask = (~(est_np <= ts_edge)) & bad if ts_edge else np.zeros(B, bool)
-    sel = np.nonzero(bad & ~f64_mask)[0]
-    if len(sel):
-        sel_j = jnp.asarray(sel)
-        fi_t, _, _ = _run_kernel_group(
-            xk[sel_j], fk[sel_j], nk[sel_j], xi[sel_j],
-            None if fi_init is None else fi_init[sel_j],
-            dim=dim, order=order, knowns=knowns, weighting=weighting,
-            route=tail_route, refine_steps=None, do_sens=False,
-            iterative=False, max_iter=0, interpret=False)
-        fi = fi.at[sel_j].set(fi_t)
-    sel64 = np.nonzero(f64_mask)[0]
-    if len(sel64):
-        no_g = defs.number_of_dofs(dim, order)
-        s_j = jnp.asarray(sel64)
-        n64 = len(sel64)
-        fi0 = (jnp.zeros((n64, no_g), xk.dtype) if fi_init is None
-               else jnp.asarray(fi_init, xk.dtype)[s_j, :no_g])
-        fi_e, _, _, _ = engine.fit_batch(
-            xk[s_j], fk[s_j], nk[s_j], xi[s_j], fi0,
-            jnp.full((n64,), order, jnp.int32),
-            jnp.full((n64,), knowns, jnp.int64),
-            jnp.full((n64,), weighting, jnp.int32),
-            dimension=dim, NO=no_g, do_sens=False, iterative=False,
-            max_iter=0, debug=False, precision=engine.PRECISION_F64)
-        fi = fi.at[s_j].set(fi_e)
-    return fi, jnp.zeros((B,), jnp.int32), None
-
-
-def _maybe_split_route(route, xk, nk, xi, *, dim, K, o, kn, wm,
-                       basic: bool):
-    """Re-route a batch-level ts kernel route on the FULL key distribution.
-
-    The sampled probe that picked the batch-level route can miss the
-    conditioning maximum entirely (the round-5 headline cloud sampled a
-    max of 21,101 vs a true 50,876), so this pass computes the per-case
-    certification key (:func:`condprobe.cond_key`) for EVERY case on the
-    concrete planning batch and re-routes on the exact distribution —
-    fastest per-case-sound rung first:
-
-    1. every key under the moments-ds est edge   -> whole batch on the
-       ~2x-faster ds body (measured 28.7 vs ts 14.5 M fits/s, v5e);
-    2. every key under the moments-dsts est edge -> whole batch on dsts
-       (23.3 M fits/s);
-    3. every key under the moments-ts est edge   -> keep the ts route,
-       which is thereby certified per-case rather than on the sample;
-    4. a certified-majority split (fast body for the keys under the
-       edge, ts re-solve for the tail window) — ONLY when the
-       throughput model predicts the composition beats the plain ts
-       kernel by :data:`ladder.SPLIT_MIN_GAIN`.  On current devices the
-       data-dependent compaction glue (XLA lowers the dynamic tail
-       gather to a serial row loop — measured ~1.3 full ts fits per
-       case, benchmarks/r5_split_ablate.json) makes the split LOSE to
-       the rung-3 ts kernel, so this rung stays dormant until the glue
-       constant drops (ladder.SPLIT_GLUE_TS_UNITS).
-
-    Decision needs concrete data (the key distribution), mirroring the
-    probe/ladder split of plan-time vs run-time everywhere else in this
-    module; replayed batches ride the plan-representativeness contract
-    that FitPlan carries throughout.
-    """
-    from wlsqm_tpu.fitter import condprobe
-    from wlsqm_tpu.ops import pallas_fit
-
-    if (route.path != "kernel" or route.kernel_precision != "ts"
-            or not basic or not pallas_fit.moment_cert_ok(dim, o, K)):
-        return route
-    edges = condprobe.est_certified_edges()
-    if not any(edges.get(k) for k in ("ds", "dsts", "ts")):
-        return route
-    est = np.asarray(condprobe.cond_key(xk, nk, xi, dimension=dim, order=o,
-                                        knowns=kn, weighting=wm))
-    B = est.shape[0]
-    # NaN keys (degenerate cases) poison the max, failing every rung
-    # below — exactly right: such cases certify nothing
-    max_est = float(np.max(est)) if B else float("nan")
-    if edges.get("ds") and max_est <= edges["ds"]:
-        return dataclasses.replace(
-            route, kernel_precision="ds", assembly="moments",
-            refine_steps=condprobe.pick_steps_at_edge(max_est))
-    if edges.get("dsts") and max_est <= edges["dsts"]:
-        # dsts sweeps contract at the same f32-preconditioner rate as
-        # ds; 3 are converged at any certifiable edge (rate^4 < 1e-13
-        # at est = 8000)
-        return dataclasses.replace(
-            route, kernel_precision="dsts", assembly="moments",
-            refine_steps=3)
-    if edges.get("ts") and max_est <= edges["ts"]:
-        return route
-    choice = condprobe.split_partition_choice()
-    if choice is None:
-        return route
-    prec, edge = choice
-    frac_fast = float((est <= edge).mean())
-    if frac_fast < ladder.SPLIT_MIN_FRAC:
-        return route
-    tail_frac = float(min(1.0, (1.0 - frac_fast) * ladder.TAIL_MARGIN
-                          + pallas_fit.TILE / max(B, 1)))
-    # throughput guard: predicted split time per case in ts-fit units
-    # (fast body 1/speed + tail window re-solve + compaction glue) must
-    # beat the plain ts kernel's 1.0 by SPLIT_MIN_GAIN
-    speed = ladder.SPLIT_SPEED_VS_TS.get(prec, 1.0)
-    pred = 1.0 / speed + tail_frac + ladder.SPLIT_GLUE_TS_UNITS
-    if pred * ladder.SPLIT_MIN_GAIN >= 1.0:
-        return route
-    steps = 3 if prec == "dsts" else condprobe.pick_steps_at_edge(edge)
-    return dataclasses.replace(
-        route, path="kernel-split", assembly="moments",
-        kernel_precision=prec, refine_steps=steps,
-        tail_refine_steps=route.refine_steps,
-        split_edge=edge, tail_frac=tail_frac)
-
-
-def _embed_kernel_result(fi_g, iters, sens, fi_init, B, NO, dim, order):
-    """Embed a kernel group result (no_g DOFs) into the caller's NO-column
-    layout, keeping ``fi_init`` values on the inactive trailing DOFs."""
-    no_g = defs.number_of_dofs(dim, order)
-    fi = fi_g
-    if no_g < NO:
-        tail = (jnp.zeros((B, NO - no_g), fi.dtype) if fi_init is None
-                else jnp.asarray(fi_init, fi.dtype)[:, no_g:NO])
-        fi = jnp.concatenate([fi, tail], axis=1)
-        if sens is not None:
-            sens = jnp.concatenate(
-                [sens, jnp.zeros(sens.shape[:2] + (NO - no_g,), sens.dtype)],
-                axis=2)
-    nanv = jnp.full((B,), jnp.nan, fi.dtype)
-    return FitResult(fi=fi, sens=sens, iterations=iters, cond_scaled=nanv)
-
-
 def _check_ds_allowed():
     """Guard an explicit precision="ds" request with the runtime canary.
 
     On backends where XLA degrades double-single pair chains to plain f32
     (documented risk on XLA:CPU — ops/twofloat.py), a user explicitly
     requesting ds would silently get ~1e-5-grade results; fail loudly
-    instead (round-2 VERDICT weak #7).
+    instead.
     """
     import os
     import warnings
@@ -440,8 +177,7 @@ def fit_many(
     ruiz_max_iter: int = 100,
     scaling: str = "ruiz",
     solver: str = solve_ops.SOLVER_CHOLESKY,
-    backend: str = "auto",
-    refine_steps: int | None = None,
+    backend: str | None = None,
     mixed_steps: int | None = None,
     plan: FitPlan | None = None,
 ) -> FitResult:
@@ -453,60 +189,32 @@ def fit_many(
     nk: (B,) valid neighbor counts; defaults to K for every case
     order / knowns / weighting: scalars or (B,) arrays (scalars broadcast)
     fi_init: (B, NO) initial DOF array carrying the known values; zeros if None
-    precision: None (default — the auto ladder picks the execution
-        precision per batch: kernel/ds where the probe allows, fast/mixed
-        with adapted sweeps otherwise; explicit backend="xla" with
-        precision=None runs "f64"), "f64" (explicit reference-exact
-        contract: ``backend="auto"`` will never route through ds-grade
-        paths), or "mixed"/"fast"/"ds" — honored verbatim, see
-        :mod:`wlsqm_tpu.fitter.engine` (explicit "ds" is guarded by the
-        pair-fidelity canary and raises on degraded backends).
+    precision: None or "f64" (default: native float64, the reference's
+        arithmetic), or one of the explicit emulation modes
+        "mixed"/"fast"/"ds" — see :mod:`wlsqm_tpu.fitter.engine` (explicit
+        "ds" is guarded by the pair-fidelity canary and raises on degraded
+        backends).
+    backend: deprecated and ignored.  "auto" and "xla" are accepted for
+        source compatibility (every call runs the masked batched engine)
+        with a DeprecationWarning; the argument will be removed.
+    mixed_steps: refinement sweep count of the "mixed"/"fast" precisions
+        (defaults to the class constants in :mod:`wlsqm_tpu.fitter.engine`).
+    plan: a :class:`FitPlan` from :func:`plan_fit_many`; its precision
+        replaces ``precision``.
 
-    backend: "auto" (default — tiered routing, see
-        :mod:`wlsqm_tpu.fitter.ladder`: per-(order, knowns, weighting)
-        groups run on the fused Pallas kernel when eligible and the
-        conditioning probe (:mod:`wlsqm_tpu.fitter.condprobe`) predicts
-        f64-grade (<= 1e-10) agreement; middle-band groups (parity still
-        physically achievable) pay for the engine's fast/mixed rungs with
-        conditioning-adapted refinement sweeps; conditioning-limited
-        groups (predicted ds floor > ladder.BEYOND_PARITY_FLOOR, where
-        even two correct f64 algorithms disagree beyond 1e-10) keep the
-        kernel's speed; whatever remains runs ONE masked-XLA engine call
-        at a ladder-picked precision — never a blind drop to emulated
-        f64), "pallas" (force the fused
-        VMEM-resident kernel — fastest on TPU; homogeneous batches only:
-        one order, one weighting, one knowns bitmask (any value — known
-        DOFs are eliminated in-kernel); ``do_sens`` and ``iterative`` are
-        supported in-kernel; no accuracy guard), or "xla" (the masked
-        batched-XLA engine at the selected ``precision``).
-    refine_steps: kernel-backend speed/accuracy dial — number of ds
-        residual sweeps after the direct solve (default
-        pallas_fit.DS_REFINE_STEPS = 4; 2 is ~20% faster and fine for
-        well-conditioned clouds).  Ignored by the XLA backend.
-    mixed_steps: engine-backend dial — refinement sweep count of the
-        "mixed"/"fast" precisions (defaults to the class constants in
-        :mod:`wlsqm_tpu.fitter.engine`; the auto ladder picks it from
-        the probed conditioning).
-    plan: a :class:`FitPlan` from :func:`plan_fit_many`.  Replays a
-        statically captured routing decision with no host-side data
-        inspection — REQUIRED for kernel-grade speed under ``jax.jit``.
-
-    Returns a :class:`FitResult`.
-
-    Tracing note: ``backend="auto"`` inspects concrete data (probe,
-    bucketing) and therefore cannot make routing decisions under
-    ``jax.jit`` / ``lax.scan`` / ``shard_map``.  A traced auto call still
-    works — it degrades to the XLA engine with a warning — but the fast
-    traced path is ``plan=plan_fit_many(...)`` (computed once, eagerly)
-    or an explicit ``backend=`` / ``precision=``.  For multi-chip
-    execution wrap the planned/explicit form in ``shard_map`` over the
-    case axis (see :func:`wlsqm_tpu.parallel.sharded_fit_many`).
+    Returns a :class:`FitResult`.  Every call traces cleanly under
+    ``jax.jit`` / ``lax.scan`` / ``shard_map``; for multi-device execution
+    see :func:`wlsqm_tpu.parallel.sharded_fit_many`.
     """
-    if backend not in ("auto", "pallas", "xla"):
-        raise ValueError(
-            "backend must be 'auto', 'pallas' or 'xla'; got %r" % (backend,))
-    if precision not in (None, engine.PRECISION_F64, engine.PRECISION_MIXED,
-                         engine.PRECISION_FAST, engine.PRECISION_DS):
+    if backend is not None:
+        if backend not in ("auto", "xla"):
+            raise ValueError(
+                "backend must be 'auto' or 'xla'; got %r" % (backend,))
+        warnings.warn(
+            "fit_many(backend=) is deprecated and ignored: every call runs "
+            "the float64 engine; drop the argument", DeprecationWarning,
+            stacklevel=2)
+    if precision is not None and precision not in _PRECISIONS:
         raise ValueError(
             "precision must be None, 'f64', 'mixed', 'fast' or 'ds'; "
             "got %r" % (precision,))
@@ -537,106 +245,12 @@ def fit_many(
                 "fi_init must have shape (B, >=NO) = (%d, >=%d); got %s"
                 % (B, NO, fi_init.shape))
 
-    # an explicit precision="f64" is an accuracy contract: auto routing must
-    # not substitute the ds-grade kernel (explicit backend="pallas" wins)
-    strict_f64 = precision == engine.PRECISION_F64
-    if precision == engine.PRECISION_DS:
+    if plan is not None:
+        precision = plan.precision
+    elif precision == engine.PRECISION_DS:
         _check_ds_allowed()
     if precision is None:
         precision = engine.PRECISION_F64
-
-    if plan is not None:
-        # static routing decision from plan_fit_many: no host-side data
-        # inspection, so this path traces under jit/scan/shard_map
-        route = plan.route
-        if route.path == "kernel-split":
-            if do_sens or iterative:
-                raise ValueError(
-                    "a kernel-split plan covers the basic algorithm only; "
-                    "re-plan with do_sens/iterative set")
-            o = int(np.max(np.asarray(order)))
-            no_g = defs.number_of_dofs(dim, o)
-            fi0_k = (None if fi_init is None
-                     else jnp.asarray(fi_init)[:, :no_g])
-            fi_g, iters, sens = _run_kernel_split(
-                xk, fk, nk, xi, fi0_k, dim=dim, order=o,
-                knowns=int(np.max(np.asarray(knowns))),
-                weighting=int(np.max(np.asarray(weighting))), route=route,
-                interpret=jax.default_backend() == "cpu")
-            return _embed_kernel_result(fi_g, iters, sens, fi_init, B, NO,
-                                        dim, o)
-        if route.path == "kernel":
-            o = int(np.max(np.asarray(order)))
-            kn = int(np.max(np.asarray(knowns)))
-            wm = int(np.max(np.asarray(weighting)))
-            no_g = defs.number_of_dofs(dim, o)
-            fi0_k = (None if fi_init is None
-                     else jnp.asarray(fi_init)[:, :no_g])
-            fi_g, iters, sens = _run_kernel_group(
-                xk, fk, nk, xi, fi0_k, dim=dim, order=o, knowns=kn,
-                weighting=wm, route=route, refine_steps=refine_steps,
-                do_sens=do_sens, iterative=iterative, max_iter=max_iter,
-                interpret=jax.default_backend() == "cpu")
-            return _embed_kernel_result(fi_g, iters, sens, fi_init, B, NO,
-                                        dim, o)
-        precision = route.precision
-        mixed_steps = (route.mixed_steps if mixed_steps is None
-                       else mixed_steps)
-        backend = "xla"
-
-    # under jit/scan/shard_map the inputs are tracers; auto routing needs
-    # concrete data, so degrade to the engine path and point the caller at
-    # plan_fit_many (which captures the routing decision statically)
-    if backend == "auto" and any(
-            isinstance(a, jax.core.Tracer) for a in (xk, fk, nk, xi)):
-        import warnings
-
-        warnings.warn(
-            "fit_many(backend='auto') is being traced (jit/scan/shard_map); "
-            "automatic routing inspects concrete data and cannot run under "
-            "a trace, so this call uses the XLA engine at precision=%r "
-            "(slow on TPU). Compute a FitPlan once on concrete data with "
-            "wlsqm_tpu.plan_fit_many(...) and pass plan= to keep "
-            "kernel-grade speed under jit." % precision,
-            stacklevel=2)
-        backend = "xla"
-
-    if backend == "pallas":
-        from wlsqm_tpu.ops import pallas_fit
-
-        if debug or not pallas_fit.supported(
-                dim, np.asarray(order), np.asarray(knowns),
-                np.asarray(weighting), K=K, do_sens=do_sens):
-            raise ValueError(
-                "backend='pallas' requires a homogeneous batch (single "
-                "order/weighting/knowns-mask) without debug; "
-                "use backend='auto' or 'xla'")
-        o = int(np.max(np.asarray(order)))
-        no_g = defs.number_of_dofs(dim, o)
-        fi0_k = None if fi_init is None else jnp.asarray(fi_init)[:, :no_g]
-        fi_g, iters, sens = _run_kernel_group(
-            xk, fk, nk, xi, fi0_k, dim=dim, order=o,
-            knowns=int(np.max(np.asarray(knowns))),
-            weighting=int(np.max(np.asarray(weighting))),
-            route=ladder.Route(path="kernel", refine_steps=refine_steps,
-                               assembly="auto"),
-            refine_steps=refine_steps, do_sens=do_sens, iterative=iterative,
-            max_iter=max_iter, interpret=jax.default_backend() == "cpu")
-        return _embed_kernel_result(fi_g, iters, sens, fi_init, B, NO,
-                                    dim, o)
-
-    if (backend == "auto" and not debug and not strict_f64
-            and jax.default_backend() != "cpu"):
-        # the tiered routing path: per-(order, knowns, weighting) groups on
-        # the fused kernel — plain or with outer f64 refinement — and a
-        # ladder-picked engine precision for whatever remains.  Always
-        # returns (the f64 engine is its own bottom rung).
-        return _auto_dispatch(
-            xk, fk, nk, xi, fi_init, dim=dim, B=B, K=K, NO=NO,
-            order_a=order_a, knowns_a=knowns_a, weighting_a=weighting_a,
-            do_sens=do_sens, iterative=iterative, max_iter=max_iter,
-            refine_steps=refine_steps, ruiz_max_iter=ruiz_max_iter,
-            scaling=scaling, solver=solver)
 
     fi0 = (jnp.zeros((B, NO), xk.dtype) if fi_init is None
            else jnp.asarray(fi_init, xk.dtype))
@@ -656,164 +270,6 @@ def fit_many(
     )
 
 
-#: groups at least this large run on the kernel (padded to a full TILE);
-#: 3x padding overhead on the smallest admissible group is still ~10x
-#: faster than the XLA path (round-2 VERDICT item 4)
-MIN_KERNEL_GROUP_DIV = 4
-
-
-def _auto_dispatch(xk, fk, nk, xi, fi_init, *, dim, B, K, NO, order_a,
-                   knowns_a, weighting_a, do_sens, iterative, max_iter,
-                   refine_steps, ruiz_max_iter, scaling, solver) -> FitResult:
-    """Tiered routing of a concrete batch (see fitter/ladder.py).
-
-    Groups the batch by (order, knowns, weighting) — SURVEY §7: masking is
-    the semantics, bucketing is the optimization.  Each group of at least
-    TILE/4 cases whose shape the kernel takes is probed and routed to the
-    cheapest rung that clears the accuracy bar (kernel, kernel + outer f64
-    refinement); everything else merges into ONE masked-XLA engine call at
-    a ladder-picked precision (ds / mixed-with-adaptive-sweeps / f64).
-    Unlike round 2 there is no precision cliff: a probe-rejected batch
-    costs ~2x the kernel (one refinement round), not ~1000x (emulated f64).
-    """
-    from wlsqm_tpu.fitter import condprobe
-    from wlsqm_tpu.ops import pallas_fit
-
-    order_np = np.asarray(order_a)
-    knowns_np = np.asarray(knowns_a)
-    weighting_np = np.asarray(weighting_a)
-    fi_init_np = None if fi_init is None else np.asarray(fi_init)
-
-    groups = sorted({(int(o), int(kn), int(wm)) for o, kn, wm in
-                     zip(order_np.tolist(), knowns_np.tolist(),
-                         weighting_np.tolist())})
-    whole = len(groups) == 1
-    min_group = max(pallas_fit.TILE // MIN_KERNEL_GROUP_DIV, 1)
-
-    fi_out = (jnp.zeros((B, NO), xk.dtype) if fi_init_np is None
-              else jnp.asarray(fi_init_np[:, :NO], xk.dtype))
-    iters_out = jnp.zeros((B,), jnp.int32)
-    sens_out = jnp.zeros((B, K, NO), xk.dtype) if do_sens else None
-    leftover = np.ones(B, bool)
-
-    for o, kn, wm in groups:
-        no_g = defs.number_of_dofs(dim, o)
-        if not whole:
-            sel = np.nonzero((order_np == o) & (knowns_np == kn)
-                             & (weighting_np == wm))[0]
-        else:
-            sel = np.arange(B)
-        if (len(sel) < min_group
-                or K < (3 * no_g) // 2
-                or not pallas_fit.supported(dim, o, kn, wm, K=K,
-                                            do_sens=do_sens)):
-            continue
-        if iterative and config.iter_count_fidelity():
-            # the caller wants the reference's exact f64 stagnation-count
-            # semantics (config.set_iter_count_fidelity): iterative
-            # batches stay on the engine
-            continue
-        sel_j = jnp.asarray(sel)
-        xk_g = xk if whole else xk[sel_j]
-        nk_g = nk if whole else nk[sel_j]
-        xi_g = xi if whole else xi[sel_j]
-        cond_amp = condprobe.probe(xk_g, nk_g, xi_g, o, wm,
-                                   dimension=dim, knowns=kn)
-        basic = not (do_sens or iterative)
-        # round 5: the moment body also covers ALGO_ITERATIVE (its
-        # corrective refit is one packed-A refinement step); only
-        # sensitivities still need the rows body
-        route = ladder.choose(
-            cond_amp, kernel_ok=True,
-            ts_kernel_ok=pallas_fit.supported(dim, o, kn, wm, K=K,
-                                              do_sens=do_sens,
-                                              precision="ts"),
-            moments_ok=not do_sens and pallas_fit.moment_cert_ok(dim, o, K),
-            ts_moments_ok=not do_sens and pallas_fit.moment_cert_ok(
-                dim, o, K, nplanes=3))
-        if route.path != "kernel":
-            continue  # engine rungs handle it in the merged leftover call
-        fi0_g = None
-        if fi_init_np is not None:
-            fi0_g = jnp.asarray(fi_init_np[:, :no_g] if whole
-                                else fi_init_np[sel][:, :no_g])
-        fk_g = fk if whole else fk[sel_j]
-        split = None
-        if (basic and refine_steps is None
-                and route.kernel_precision == "ts"
-                and pallas_fit.moment_cert_ok(dim, o, K)):
-            choice = condprobe.split_partition_choice()
-            if choice is not None and cond_amp is not None:
-                prec, edge = choice
-                ca_g = cond_amp[0] * cond_amp[1]
-                # perf heuristic on the sampled probe (soundness comes
-                # from the per-case runtime key): engage when the
-                # median-slack-scaled sample mostly certifies
-                if (float((ca_g * ladder.EST_OVER_COND_MED
-                           <= edge).mean()) >= ladder.SPLIT_MIN_FRAC):
-                    split = (prec, edge)
-        if split is not None:
-            fi_g, iters_g, sens_g = _eager_split_group(
-                xk_g, fk_g, nk_g, xi_g, fi0_g, dim=dim, order=o,
-                knowns=kn, weighting=wm, prec=split[0], edge=split[1],
-                tail_route=dataclasses.replace(route, assembly="moments"))
-        else:
-            fi_g, iters_g, sens_g = _run_kernel_group(
-                xk_g, fk_g, nk_g, xi_g, fi0_g,
-                dim=dim, order=o, knowns=kn, weighting=wm, route=route,
-                refine_steps=refine_steps, do_sens=do_sens,
-                iterative=iterative, max_iter=max_iter, interpret=False)
-        if whole:
-            return _embed_kernel_result(fi_g, iters_g, sens_g, fi_init,
-                                        B, NO, dim, o)
-        fi_out = fi_out.at[sel_j, :no_g].set(fi_g)
-        iters_out = iters_out.at[sel_j].set(iters_g)
-        if sens_g is not None:
-            sens_out = sens_out.at[sel_j, :, :no_g].set(sens_g)
-        leftover[sel] = False
-
-    if leftover.any():
-        rest = np.nonzero(leftover)[0]
-        all_rest = bool(leftover.all())
-        rest_j = jnp.asarray(rest)
-
-        def sub(a):
-            return a if all_rest else a[rest_j]
-
-        # ladder for the engine: probe with knowns=0 (conservative — the
-        # unreduced system's conditioning bounds the reduced one in
-        # practice) and the per-case orders/weightings of the leftover set
-        from wlsqm_tpu.fitter import engine_ds
-
-        cond_amp = condprobe.probe(
-            sub(xk), sub(nk), sub(xi), order_np[rest], weighting_np[rest],
-            dimension=dim, knowns=0)
-        route = ladder.choose(cond_amp, kernel_ok=False,
-                              ds_xla_ok=engine_ds.ds_backend_ok())
-        fi0_r = sub(fi_out)
-        fi_r, sens_r, iters_r, _ = engine.fit_batch(
-            sub(xk), sub(fk), sub(nk), sub(xi), fi0_r,
-            jnp.asarray(order_np[rest]), jnp.asarray(knowns_np[rest]),
-            jnp.asarray(weighting_np[rest]),
-            dimension=dim, NO=NO, do_sens=do_sens, iterative=iterative,
-            max_iter=max_iter, debug=False, precision=route.precision,
-            ruiz_max_iter=ruiz_max_iter, scaling=scaling, solver=solver,
-            mixed_steps=route.mixed_steps)
-        if all_rest:
-            fi_out, iters_out = fi_r, iters_r
-            if do_sens:
-                sens_out = sens_r
-        else:
-            fi_out = fi_out.at[rest_j].set(fi_r)
-            iters_out = iters_out.at[rest_j].set(iters_r)
-            if do_sens:
-                sens_out = sens_out.at[rest_j].set(sens_r)
-
-    nanv = jnp.full((B,), jnp.nan, fi_out.dtype)
-    return FitResult(fi=fi_out, sens=sens_out, iterations=iters_out,
-                     cond_scaled=nanv)
-
-
 def plan_fit_many(
     xk,
     xi=None,
@@ -825,78 +281,35 @@ def plan_fit_many(
     do_sens: bool = False,
     iterative: bool = False,
     precision: str | None = None,
-    refine_steps: int | None = None,
 ) -> FitPlan:
-    """Compute a static :class:`FitPlan` from concrete representative data.
+    """Compute a static :class:`FitPlan` for one homogeneous configuration.
 
-    Runs the same probe + ladder decision as ``fit_many(backend="auto")``,
-    eagerly, and captures the outcome so ``fit_many(..., plan=plan)`` can
-    execute inside ``jax.jit`` / ``lax.scan`` / ``shard_map`` with no
-    host-side data inspection.  ``order``/``knowns``/``weighting`` must be
-    scalars (one homogeneous configuration — heterogeneous batches need
-    eager bucketing and cannot be planned statically).
+    ``order``/``knowns``/``weighting`` must be scalars (one static
+    configuration).  Every configuration runs the masked batched engine,
+    so the plan carries only the engine precision (native "f64" unless an
+    emulation mode is pinned); the geometry arguments are accepted so that
+    call sites stay valid whatever the plan comes to depend on.
 
-    Typical use (an IBVP loop or chunked stream where the geometry is
-    fixed or statistically stable)::
+    Typical use (an IBVP loop or chunked stream)::
 
         plan = wt.plan_fit_many(xk0, xi0, order=4, weighting=wt.WEIGHT_CENTER)
         step = jax.jit(lambda xk, fk, xi: wt.fit_many(
             xk, fk, xi, order=4, weighting=wt.WEIGHT_CENTER, plan=plan).fi)
     """
-    from wlsqm_tpu.fitter import condprobe
-    from wlsqm_tpu.ops import pallas_fit
-
     for name, v in (("order", order), ("knowns", knowns),
                     ("weighting", weighting)):
         if np.ndim(v) != 0:
             raise ValueError(
                 "plan_fit_many requires a scalar %s (homogeneous batch); "
-                "heterogeneous batches must use eager fit_many bucketing"
+                "heterogeneous batches call fit_many with per-case arrays"
                 % name)
-    if any(isinstance(a, jax.core.Tracer) for a in (xk, xi, nk)):
+    if precision is not None and precision not in _PRECISIONS:
         raise ValueError(
-            "plan_fit_many must run on concrete (non-traced) data — call "
-            "it eagerly once, then pass the plan into the traced fit_many")
-    xk, xi, B, K, dim = _canon_geometry(xk, xi)
-    nk = (jnp.full((B,), K, jnp.int32) if nk is None
-          else jnp.asarray(nk, jnp.int32))
-    o, kn, wm = int(order), int(knowns), int(weighting)
-    NO = defs.number_of_dofs(dim, o)
-    on_cpu = jax.default_backend() == "cpu"
-    strict_f64 = precision == engine.PRECISION_F64
-    if strict_f64 or on_cpu:
-        return FitPlan(route=ladder.Route(
-            path="xla", precision=precision or engine.PRECISION_F64))
-    if precision not in (None,):
-        # an explicitly pinned non-f64 precision is honored verbatim
-        return FitPlan(route=ladder.Route(path="xla", precision=precision))
-    kernel_ok = (K >= (3 * NO) // 2
-                 and pallas_fit.supported(dim, o, kn, wm, K=K,
-                                          do_sens=do_sens)
-                 and not (iterative and config.iter_count_fidelity()))
-    from wlsqm_tpu.fitter import engine_ds
-
-    cond_amp = condprobe.probe(xk, nk, xi, o, wm, dimension=dim, knowns=kn)
-    basic = not (do_sens or iterative)
-    route = ladder.choose(
-        cond_amp, kernel_ok=kernel_ok,
-        ds_xla_ok=engine_ds.ds_backend_ok(),
-        ts_kernel_ok=kernel_ok and pallas_fit.supported(
-            dim, o, kn, wm, K=K, do_sens=do_sens, precision="ts"),
-        moments_ok=(kernel_ok and not do_sens
-                    and pallas_fit.moment_cert_ok(dim, o, K)),
-        ts_moments_ok=(kernel_ok and not do_sens
-                       and pallas_fit.moment_cert_ok(dim, o, K,
-                                                     nplanes=3)))
-    if refine_steps is not None and route.path == "kernel":
-        route = dataclasses.replace(route, refine_steps=refine_steps)
-    elif refine_steps is None:
-        # a batch-level ts route may upgrade to the per-case certified
-        # split when most of the planning batch certifies individually
-        # for the ~2x-faster moments-ds/dsts body (fitter/ladder.py)
-        route = _maybe_split_route(route, xk, nk, xi, dim=dim, K=K, o=o,
-                                   kn=kn, wm=wm, basic=basic)
-    return FitPlan(route=route)
+            "precision must be None, 'f64', 'mixed', 'fast' or 'ds'; "
+            "got %r" % (precision,))
+    if precision == engine.PRECISION_DS:
+        _check_ds_allowed()
+    return FitPlan(precision=precision or engine.PRECISION_F64)
 
 
 def fit_stream(xk, fk, xi=None, *, nk=None, chunk: int = 65536,
@@ -906,13 +319,14 @@ def fit_stream(xk, fk, xi=None, *, nk=None, chunk: int = 65536,
     Host arrays (NumPy, including ``np.memmap``) are uploaded one
     ``chunk`` at a time, fitted with :func:`fit_many`, and the solved DOFs
     land in a host-side output array — only ~two chunks of geometry are
-    ever resident in HBM, so the cloud size is bounded by host storage,
-    not device memory.  The loop keeps one chunk in flight: while chunk i
-    computes (dispatch is asynchronous), chunk i-1's results transfer back,
-    overlapping compute with PCIe/ICI traffic.  The last partial chunk is
-    padded to the full chunk size so every step reuses one compiled
-    program.  (The reference streams nothing — its OpenMP loop assumes the
-    whole problem set fits in RAM; reference: wlsqm/fitter/simple.pyx:953ff.)
+    ever resident in device memory, so the cloud size is bounded by host
+    storage, not device memory.  The loop keeps one chunk in flight: while
+    chunk i computes (dispatch is asynchronous), chunk i-1's results
+    transfer back, overlapping compute with host-device traffic.  The last
+    partial chunk is padded to the full chunk size so every step reuses
+    one compiled program.  (The reference streams nothing — its OpenMP
+    loop assumes the whole problem set fits in RAM; reference:
+    wlsqm/fitter/simple.pyx:953ff.)
 
     xk (B, K, dim) | fk (B, K) | xi (B, dim) | nk (B,) — host array-likes.
     chunk: cases per device batch (default 65536).
@@ -920,12 +334,11 @@ def fit_stream(xk, fk, xi=None, *, nk=None, chunk: int = 65536,
     mesh: optional :class:`jax.sharding.Mesh` (1-D).  Each chunk is then
         uploaded sharded along its case axis and fitted with one jitted
         ``shard_map`` over the mesh — chunked streaming *and* data
-        parallelism across chips at once, with the same zero-collective
+        parallelism across devices at once, with the same zero-collective
         body as :func:`wlsqm_tpu.parallel.sharded_fit_many`.  The chunk
-        size is rounded up so every shard gets an equal (kernel-tileable)
-        slice.  Requires scalar ``order``/``knowns``/``weighting`` and no
-        ``fi_init`` array (per-case configs stream unsharded).
-    kwargs: forwarded to :func:`fit_many` (order, weighting, backend, ...);
+        size is rounded up to a multiple of the shard count; per-case
+        parameter arrays shard along with the geometry.
+    kwargs: forwarded to :func:`fit_many` (order, weighting, precision, ...);
     per-case parameter arrays are sliced along with the geometry.
     ``do_sens``/``debug`` are not supported here (their outputs would not
     stream); use :func:`fit_many` on a chunk directly.
@@ -958,34 +371,10 @@ def fit_stream(xk, fk, xi=None, *, nk=None, chunk: int = 65536,
         raise ValueError("out must have shape (%d, %d)" % (B, NO))
     iters_out = np.zeros((B,), np.int32)
 
-    # plan once, replay per chunk: with a homogeneous scalar config the
-    # routing decision (probe + ladder) is computed on the first chunk and
-    # reused, so the stream neither re-probes every chunk nor flip-flops
-    # routes between chunks of one cloud
-    if (kwargs.get("backend", "auto") == "auto"
-            and "plan" not in kwargs and not per_case
-            and (B >= chunk or mesh is not None)):
-        # with a mesh, `chunk` may be sized for the mesh's AGGREGATE HBM;
-        # the plan probe runs unsharded on one device, so cap its slice —
-        # the routing decision only needs representative geometry
-        probe_n = min(B, chunk if mesh is None else min(chunk, 16384))
-        kwargs["plan"] = plan_fit_many(
-            xk[:probe_n], None if xi_np is None else xi_np[:probe_n],
-            nk=None if nk_np is None else nk_np[:probe_n],
-            order=order, knowns=kwargs.get("knowns", 0),
-            weighting=kwargs.get("weighting", defs.WEIGHT_UNIFORM),
-            do_sens=False, iterative=bool(kwargs.get("iterative", False)),
-            precision=kwargs.get("precision"),
-            refine_steps=kwargs.get("refine_steps"))
-
     if mesh is not None:
-        if per_case:
-            return _fit_stream_sharded_hetero(
-                mesh, xk, fk, xi_np, nk_np, per_case, chunk=chunk,
-                fi_out=fi_out, iters_out=iters_out, NO=NO, kwargs=kwargs)
         return _fit_stream_sharded(
-            mesh, xk, fk, xi_np, nk_np, chunk=chunk,
-            fi_out=fi_out, iters_out=iters_out, kwargs=kwargs)
+            mesh, xk, fk, xi_np, nk_np, per_case, chunk=chunk,
+            fi_out=fi_out, iters_out=iters_out, NO=NO, kwargs=kwargs)
 
     def run(lo, hi):
         n = hi - lo
@@ -1021,20 +410,22 @@ def fit_stream(xk, fk, xi=None, *, nk=None, chunk: int = 65536,
                      cond_scaled=np.full((B,), np.nan))
 
 
-def _fit_stream_sharded(mesh, xk, fk, xi_np, nk_np, *, chunk,
-                        fi_out, iters_out, kwargs) -> FitResult:
+def _fit_stream_sharded(mesh, xk, fk, xi_np, nk_np, per_case, *, chunk,
+                        fi_out, iters_out, NO, kwargs) -> FitResult:
     """Chunked streaming with each chunk data-parallel over ``mesh``.
 
-    One jitted ``shard_map`` of the planned :func:`fit_many` body is
-    compiled once; every chunk is ``device_put`` sharded along the case
-    axis (host→device transfers fan out to the shards directly) and
-    replayed through it.  The effective chunk size is rounded up to a
-    multiple of the shard count (× the kernel TILE when the plan routes
-    to the fused kernel) so each shard's slice is identical across
-    chunks — one compiled program for the whole stream, including the
-    padded tail.  Multi-chip counterpart of the reference's OpenMP
-    parallel loop over problems (reference: wlsqm/fitter/simple.pyx:953ff)
-    for clouds that exceed even the mesh's aggregate HBM.
+    One jitted ``shard_map`` of :func:`fit_many` is compiled once; every
+    chunk, with its per-case order/knowns/weighting/fi_init columns
+    (scalars broadcast), is ``device_put`` sharded along the case axis and
+    replayed through it.  The step is rounded up to a multiple of the
+    shard count so each shard's slice has one shape across chunks — one
+    compiled program for the whole stream, including the padded tail.
+    Every case runs the same per-case engine arithmetic as an unsharded
+    :func:`fit_many`, so results are identical to it.  Multi-device
+    counterpart of the reference's OpenMP parallel loop over problems
+    (reference: wlsqm/fitter/simple.pyx:953ff) for clouds that exceed even
+    the mesh's aggregate device memory (per-case configuration is part of
+    the reference's many-API contract: wlsqm/fitter/simple.pyx:318-346).
     """
     from jax.sharding import NamedSharding, PartitionSpec
 
@@ -1044,35 +435,35 @@ def _fit_stream_sharded(mesh, xk, fk, xi_np, nk_np, *, chunk,
     if nk_np is None:
         nk_np = np.full((B,), K, np.int32)
 
+    def col(key, default, dtype):
+        v = per_case.get(key)
+        if v is None:
+            v = kwargs.get(key, default)
+        v = np.asarray(v, dtype)
+        return np.broadcast_to(v, (B,)) if v.ndim == 0 else v
+
+    order_c = col("order", 2, np.int32)
+    knowns_c = col("knowns", 0, np.int64)
+    weighting_c = col("weighting", defs.WEIGHT_UNIFORM, np.int32)
+    _validate_weighting(weighting_c)
+    fi_init = per_case.get("fi_init")
+    fi_init = (np.zeros((B, NO), xk.dtype) if fi_init is None
+               else np.asarray(fi_init, xk.dtype)[:, :NO])
+
     n_shards = int(mesh.devices.size)
-    axis = mesh.axis_names[0]
-    gran = n_shards
-    plan = kwargs.get("plan")
-    if plan is not None and plan.route.path in ("kernel", "kernel-split"):
-        from wlsqm_tpu.ops.pallas_fit import TILE
-        gran = n_shards * TILE
-    step = -(-min(chunk, B) // gran) * gran
-    if step > 2 * chunk:
-        import warnings
-
-        warnings.warn(
-            "fit_stream(mesh=...): the requested chunk=%d was rounded up "
-            "to %d cases per step (shard granularity: %d shards x %d-case "
-            "kernel tiles); size the chunk for the mesh's aggregate HBM "
-            "or expect ~%.0fx the requested per-step footprint"
-            % (chunk, step, n_shards, gran // n_shards, step / chunk),
-            stacklevel=3)
-
-    spec = PartitionSpec(axis)
+    spec = PartitionSpec(mesh.axis_names[0])
     shard = NamedSharding(mesh, spec)
-    kw = dict(kwargs)
+    step = -(-min(chunk, B) // n_shards) * n_shards
+    kw = {k: v for k, v in kwargs.items()
+          if k not in ("order", "knowns", "weighting", "fi_init")}
 
-    def local(xk_, fk_, nk_, xi_):
-        res = fit_many(xk_, fk_, xi_, nk=nk_, **kw)
+    def local(xk_, fk_, nk_, xi_, o_, kn_, wm_, fi0_):
+        res = fit_many(xk_, fk_, xi_, nk=nk_, order=o_, knowns=kn_,
+                       weighting=wm_, fi_init=fi0_, **kw)
         return res.fi, res.iterations
 
     fn = jax.jit(jax.shard_map(
-        local, mesh=mesh, in_specs=(spec,) * 4,
+        local, mesh=mesh, in_specs=(spec,) * 8,
         out_specs=(spec, spec), check_vma=False))
 
     def drain(pending):
@@ -1092,223 +483,12 @@ def _fit_stream_sharded(mesh, xk, fk, xi_np, nk_np, *, chunk,
             return sl
 
         args = [jax.device_put(padded(a), shard)
-                for a in (xk, fk, nk_np, xi_np)]
+                for a in (xk, fk, nk_np, xi_np, order_c, knowns_c,
+                          weighting_c, fi_init)]
         fi_c, it_c = fn(*args)
         if pending is not None:
             drain(pending)
         pending = (lo, hi, fi_c, it_c)
-    if pending is not None:
-        drain(pending)
-
-    return FitResult(fi=fi_out, sens=None, iterations=iters_out,
-                     cond_scaled=np.full((B,), np.nan))
-
-
-def _fit_stream_sharded_hetero(mesh, xk, fk, xi_np, nk_np, per_case, *,
-                               chunk, fi_out, iters_out, NO,
-                               kwargs) -> FitResult:
-    """Per-case configurations, chunk-streamed over a device mesh.
-
-    Replays :func:`fit_many`'s eager dispatch per chunk — the same grouping
-    thresholds, probes and ladder picks as ``_auto_dispatch`` — but runs
-    each resulting device computation (kernel groups; the merged masked
-    engine call for the leftover) under a ``shard_map`` over ``mesh``, so
-    every case lands in the same code path it would take in an UNSHARDED
-    stream of the same chunking, bit-identically (TPU-verified).  Against
-    one big ``fit_many`` of the mixed batch the result is bit-identical
-    whenever the per-chunk probes pick the same routes as the whole-batch
-    probe (always true on CPU, where routing pins the f64 engine); when a
-    chunk's conditioning profile picks a different certified route the
-    results differ below the 1e-10 parity bar (measured 5e-13 on the
-    TPU), exactly as two certified fit_many calls may.  The decisions
-    need concrete data, which is exactly what the host-side chunk loop
-    has; only the batched math is sharded.  (Per-case configuration is
-    part of the reference's many-API contract:
-    wlsqm/fitter/simple.pyx:318-346.)
-    """
-    from jax.sharding import NamedSharding, PartitionSpec
-    from wlsqm_tpu.fitter import condprobe, engine_ds
-    from wlsqm_tpu.ops import pallas_fit
-
-    B, K, dim = xk.shape
-    if xi_np is None:
-        xi_np = np.zeros((B, dim), xk.dtype)
-    if nk_np is None:
-        nk_np = np.full((B,), K, np.int32)
-
-    def col(key, default, dtype):
-        v = per_case.get(key)
-        if v is None:
-            v = kwargs.get(key, default)
-        v = np.asarray(v, dtype)
-        return np.broadcast_to(v, (B,)) if v.ndim == 0 else v
-
-    order_c = col("order", 2, np.int32)
-    knowns_c = col("knowns", 0, np.int64)
-    weighting_c = col("weighting", defs.WEIGHT_UNIFORM, np.int32)
-    _validate_weighting(jnp.asarray(weighting_c))
-    fi_init = per_case.get("fi_init")
-    fi_init = None if fi_init is None else np.asarray(fi_init, xk.dtype)
-
-    n_shards = int(mesh.devices.size)
-    axis = mesh.axis_names[0]
-    spec = PartitionSpec(axis)
-    shard = NamedSharding(mesh, spec)
-    step = -(-min(chunk, B) // n_shards) * n_shards
-
-    backend = kwargs.get("backend", "auto")
-    precision = kwargs.get("precision")
-    iterative = bool(kwargs.get("iterative", False))
-    max_iter = int(kwargs.get("max_iter", 10))
-    refine_steps = kwargs.get("refine_steps")
-    ruiz_max_iter = int(kwargs.get("ruiz_max_iter", 100))
-    scaling = kwargs.get("scaling", "ruiz")
-    solver = kwargs.get("solver", solve_ops.SOLVER_CHOLESKY)
-    mixed_steps = kwargs.get("mixed_steps")
-    if precision == engine.PRECISION_DS:
-        _check_ds_allowed()
-    # grouped kernel routing only applies where fit_many's _auto_dispatch
-    # would run it; otherwise (cpu / pinned precision / backend="xla")
-    # every case goes through the one masked engine call, like fit_many
-    auto = (backend == "auto" and precision is None
-            and jax.default_backend() != "cpu")
-    min_group = max(pallas_fit.TILE // MIN_KERNEL_GROUP_DIV, 1)
-
-    fns = {}   # (kind, *static) -> jitted shard_map callable
-
-    def kernel_fn(o, kn, wm, route, has_fi0):
-        key = ("k", o, kn, wm, dataclasses.astuple(route), has_fi0)
-        if key not in fns:
-            def local(xk_, fk_, nk_, xi_, *rest, _o=o, _kn=kn, _wm=wm,
-                      _route=route):
-                fi0 = rest[0] if rest else None
-                fi_g, it_g, _ = _run_kernel_group(
-                    xk_, fk_, nk_, xi_, fi0, dim=dim, order=_o, knowns=_kn,
-                    weighting=_wm, route=_route, refine_steps=refine_steps,
-                    do_sens=False, iterative=iterative, max_iter=max_iter,
-                    interpret=False)
-                return fi_g, it_g
-
-            nin = 5 if has_fi0 else 4
-            fns[key] = jax.jit(jax.shard_map(
-                local, mesh=mesh, in_specs=(spec,) * nin,
-                out_specs=(spec, spec), check_vma=False))
-        return fns[key]
-
-    def engine_fn(prec, msteps):
-        key = ("e", prec, msteps)
-        if key not in fns:
-            def local(xk_, fk_, nk_, xi_, fi0_, o_, kn_, wm_,
-                      _prec=prec, _msteps=msteps):
-                fi, _, it, _ = engine.fit_batch(
-                    xk_, fk_, nk_, xi_, fi0_, o_, kn_, wm_,
-                    dimension=dim, NO=NO, do_sens=False,
-                    iterative=iterative, max_iter=max_iter, debug=False,
-                    precision=_prec, ruiz_max_iter=ruiz_max_iter,
-                    scaling=scaling, solver=solver, mixed_steps=_msteps)
-                return fi, it
-
-            fns[key] = jax.jit(jax.shard_map(
-                local, mesh=mesh, in_specs=(spec,) * 8,
-                out_specs=(spec, spec), check_vma=False))
-        return fns[key]
-
-    def put(a, sel):
-        sl = np.ascontiguousarray(a[sel])
-        pad = (-sl.shape[0]) % n_shards
-        if pad:
-            sl = np.concatenate([sl, np.repeat(sl[:1], pad, axis=0)])
-        return jax.device_put(sl, shard)
-
-    def run_chunk(sl, n):
-        """Dispatch one padded chunk; returns lazy (sel, no_g, fi, it) parts."""
-        cxk, cfk, cnk, cxi, cord, ckn, cwm, cfi0 = sl
-        parts = []
-        leftover = np.ones(len(cord), bool)
-        if auto:
-            groups = sorted({(int(o), int(kn), int(wm)) for o, kn, wm in
-                             zip(cord.tolist(), ckn.tolist(), cwm.tolist())})
-            for o, kn, wm in groups:
-                no_g = defs.number_of_dofs(dim, o)
-                sel = np.nonzero((cord == o) & (ckn == kn) & (cwm == wm))[0]
-                if (len(sel) < min_group
-                        or K < (3 * no_g) // 2
-                        or not pallas_fit.supported(dim, o, kn, wm, K=K,
-                                                    do_sens=False)
-                        or (iterative and config.iter_count_fidelity())):
-                    continue
-                cond_amp = condprobe.probe(
-                    cxk[sel], cnk[sel], cxi[sel], o, wm,
-                    dimension=dim, knowns=kn)
-                route = ladder.choose(
-                    cond_amp, kernel_ok=True,
-                    ts_kernel_ok=pallas_fit.supported(
-                        dim, o, kn, wm, K=K, do_sens=False, precision="ts"),
-                    moments_ok=pallas_fit.moment_cert_ok(dim, o, K),
-                    ts_moments_ok=pallas_fit.moment_cert_ok(
-                        dim, o, K, nplanes=3))
-                if route.path != "kernel":
-                    continue
-                args = [put(a, sel) for a in (cxk, cfk, cnk, cxi)]
-                if cfi0 is not None:
-                    args.append(put(cfi0[:, :no_g], sel))
-                fi_g, it_g = kernel_fn(o, kn, wm, route,
-                                       cfi0 is not None)(*args)
-                parts.append((sel, no_g, fi_g, it_g))
-                leftover[sel] = False
-            rest = np.nonzero(leftover)[0]
-            if len(rest):
-                cond_amp = condprobe.probe(
-                    cxk[rest], cnk[rest], cxi[rest], cord[rest], cwm[rest],
-                    dimension=dim, knowns=0)
-                route = ladder.choose(cond_amp, kernel_ok=False,
-                                      ds_xla_ok=engine_ds.ds_backend_ok())
-                prec, msteps = route.precision, route.mixed_steps
-            else:
-                rest = None
-        else:
-            rest = np.arange(len(cord))
-            prec = precision or engine.PRECISION_F64
-            msteps = mixed_steps
-        if rest is not None and len(rest):
-            fi0 = (np.zeros((len(cord), NO), cxk.dtype) if cfi0 is None
-                   else cfi0[:, :NO])
-            args = ([put(a, rest) for a in (cxk, cfk, cnk, cxi, fi0)]
-                    + [put(a, rest) for a in (cord, ckn, cwm)])
-            fi_r, it_r = engine_fn(prec, msteps)(*args)
-            parts.append((rest, NO, fi_r, it_r))
-        return parts
-
-    def drain(pending):
-        lo, n, cfi0, parts = pending
-        chunk_fi = (np.zeros((step, NO), xk.dtype) if cfi0 is None
-                    else np.array(cfi0[:, :NO], xk.dtype))
-        chunk_it = np.zeros((step,), np.int32)
-        for sel, no_g, fi_d, it_d in parts:
-            chunk_fi[sel, :no_g] = np.asarray(fi_d)[: len(sel), :no_g]
-            chunk_it[sel] = np.asarray(it_d)[: len(sel)]
-        fi_out[lo:lo + n] = chunk_fi[:n]
-        iters_out[lo:lo + n] = chunk_it[:n]
-
-    pending = None
-    for lo in range(0, B, step):
-        hi = min(lo + step, B)
-        pad = step - (hi - lo)
-
-        def padded(a):
-            if a is None:
-                return None
-            sl = np.asarray(a[lo:hi])
-            if pad:
-                sl = np.concatenate([sl, np.repeat(sl[:1], pad, axis=0)])
-            return sl
-
-        sl = tuple(padded(a) for a in (xk, fk, nk_np, xi_np, order_c,
-                                       knowns_c, weighting_c, fi_init))
-        parts = run_chunk(sl, hi - lo)
-        if pending is not None:
-            drain(pending)
-        pending = (lo, hi - lo, sl[7], parts)
     if pending is not None:
         drain(pending)
 

@@ -1,6 +1,6 @@
 """Constants layer: DOF numbering, knowns bitmasks, algorithm / weighting ids.
 
-TPU-native rebuild of the reference constants module
+Rebuild of the reference constants module
 (reference: wlsqm/fitter/defs.pyx:69-279).  The DOF orderings below are part
 of the public API contract: DOFs are grouped in increasing order of number of
 differentiations, so an order-k fit's coefficient vector is a prefix of the
@@ -8,8 +8,8 @@ order-4 layout, and arrays can simply be truncated
 (reference: wlsqm/fitter/defs.pyx:79-87).
 
 Unlike the reference (compile-time Cython constants), these are plain Python
-ints plus NumPy tables; the monomial exponent tables that drive the TPU
-kernels live in :mod:`wlsqm_tpu.fitter.tables` and are generated from the
+ints plus NumPy tables; the monomial exponent tables that drive the batched
+engine live in :mod:`wlsqm_tpu.fitter.tables` and are generated from the
 same orderings.
 """
 

@@ -1,4 +1,4 @@
-"""The TPU-native WLSQM fitting engine.
+"""The batched WLSQM fitting engine.
 
 This module replaces the reference's per-case pointer machinery and scalar
 loops (reference: wlsqm/fitter/infra.pyx Allocator/CaseManager/Case,
@@ -23,8 +23,8 @@ fully batched, statically-shaped, functional formulation:
   axis (see :mod:`wlsqm_tpu.parallel`).
 
 Everything here is pure and jit/vmap/shard_map-compatible.  The ``Prepared``
-pytree is the TPU analogue of the reference ExpertSolver's prepared state
-(factorizations resident in HBM, reference: wlsqm/fitter/expert.pyx:66-89):
+pytree is the batched analogue of the reference ExpertSolver's prepared state
+(factorizations resident in device memory, reference: wlsqm/fitter/expert.pyx:66-89):
 it can be solved against many times, serialized, donated, or shared between
 fields ("guest mode" = reusing the same Prepared object).
 
@@ -60,7 +60,7 @@ WEIGHT_BETA = 1.0 - WEIGHT_ALPHA
 MIXED_REFINE_STEPS = 3
 
 # Fast mode: EVERYTHING O(n^2)/O(n^3) per case runs in native f32 (assembly
-# einsum on the MXU, Ruiz, Cholesky, substitutions); f64 appears only in the
+# einsum, Ruiz, Cholesky, substitutions); f64 appears only in the
 # O(K·NO) pieces: the basis rows, the RHS contraction, and the residual
 # matvecs of the refinement loop, which iterates the f32 solver to the TRUE
 # f64 normal-equations fixed point.  The refinement contraction factor is
@@ -70,7 +70,7 @@ FAST_REFINE_STEPS = 6
 PRECISION_F64 = "f64"      # factor/solve in the input dtype (reference-exact path)
 PRECISION_MIXED = "mixed"  # f64 assembly, f32 factor/solve + f64 refinement
 PRECISION_FAST = "fast"    # f32 assembly+factor/solve, f64 refinement through C
-PRECISION_DS = "ds"        # double-single f32 pairs everywhere; no bulk f64 (TPU fast path)
+PRECISION_DS = "ds"        # double-single f32 pairs everywhere; no bulk f64
 
 
 # -----------------------------------------------------------------------------
@@ -190,7 +190,7 @@ def neighbor_weights(d2: jax.Array, kmask: jax.Array, weighting: jax.Array) -> j
 class Prepared:
     """Cached geometry: basis rows, weights, scaled+factored normal matrices.
 
-    The TPU analogue of the reference's prepared Case arrays (c, w, LU(A),
+    The batched analogue of the reference's prepared Case arrays (c, w, LU(A),
     row/col scalings; reference: wlsqm/fitter/infra.pxd:124-183).  Immutable;
     solving against it is a pure function of (Prepared, fk, fi).
     """
@@ -251,15 +251,15 @@ def prepare(
     (reference: wlsqm/fitter/impl.pyx:47-689) into one batched program.
 
     ``ruiz_max_iter`` / ``ruiz_eps``: equilibration loop controls.  The
-    reference iterates to 1e-15 (≤ 100 sweeps); under TPU-emulated f64 the
-    1e-15 test may never trigger, and because any diagonal scaling is exact
+    reference iterates to 1e-15 (≤ 100 sweeps); the 1e-15 test may never
+    trigger on some geometries, and because any diagonal scaling is exact
     algebra, truncating the loop changes only the conditioning quality, not
     the semantics — ~10 sweeps is fully converged in practice.
 
     ``precision``: PRECISION_F64 runs factor/solve in the input dtype
     (reference-exact); PRECISION_MIXED factors in f32 and recovers f64-class
-    accuracy via f64-residual refinement at solve time (the TPU fast path —
-    on TPU, native-f64 is software-emulated and ~30x slower).
+    accuracy via f64-residual refinement at solve time (an explicit
+    emulation mode for devices whose float64 rate is low).
     """
     dtype = xk.dtype
     B, K, _ = xk.shape
@@ -304,15 +304,15 @@ def prepare(
 
     # A[j,m] = sum_k w_k c[k,j] c[k,m] over unknown DOFs; identity elsewhere
     # (reference: wlsqm/fitter/impl.pyx:566-602 make_A). The contraction runs
-    # on the MXU as a batched matmul.  In FAST mode the whole O(n^2)/O(n^3)
+    # as a batched matmul.  In FAST mode the whole O(n^2)/O(n^3)
     # chain (assembly, Ruiz, factorization) runs in native f32; f64 accuracy
     # is recovered at solve time by refinement through the f64 basis rows.
     asm_dtype = jnp.float32 if precision == PRECISION_FAST else dtype
     c_a = c.astype(asm_dtype)
     w_a = w.astype(asm_dtype)
     cw = c_a * w_a[..., None]
-    # HIGHEST matmul precision: TPU otherwise runs f32 contractions as
-    # single-pass bf16 on the MXU, which destroys the preconditioner quality
+    # HIGHEST matmul precision: a GPU may otherwise run f32 contractions in
+    # TF32 (10 mantissa bits), which destroys the preconditioner quality
     A_full = jnp.einsum("bkj,bkm->bjm", cw, c_a,
                         preferred_element_type=asm_dtype,
                         precision=jax.lax.Precision.HIGHEST)
@@ -405,9 +405,8 @@ def _solve_scaled(prep: Prepared, b: jax.Array,
     """Solve A_scaled X = b through the prepared factorization.
 
     b: (..., n, m) multi-RHS.  ``mixed_steps`` overrides the number of
-    refinement sweeps in the mixed/fast modes (the precision ladder picks
-    it from the probed conditioning — wlsqm_tpu/fitter/ladder.py; the
-    class defaults below are tuned for cond ~ 1e2..1e5).
+    refinement sweeps in the mixed/fast modes (the class defaults below
+    are tuned for cond ~ 1e2..1e5).
 
     * PRECISION_F64: direct back-substitution in the input dtype.
     * PRECISION_MIXED: f32 factorization + MIXED_REFINE_STEPS rounds of

@@ -1,13 +1,13 @@
-"""Double-single (ds) engine path: f64-class accuracy at native f32 speed.
+"""Double-single (ds) engine path: f64-class accuracy from f32 arithmetic.
 
-TPU v5e emulates float64 in software at a punishing cost (measured ~30-70x
-per op on this pipeline).  The ``precision="ds"`` mode removes bulk f64 from
-the entire fit:
+An explicit emulation mode for devices whose float64 rate is low (the
+default everywhere is native float64).  The ``precision="ds"`` mode removes
+bulk f64 from the entire fit:
 
 * basis rows, weights, RHS contraction and refinement residual matvecs run
   in double-single arithmetic (:mod:`wlsqm_tpu.ops.twofloat`): (hi, lo) f32
-  pairs with ~48-bit effective mantissa, a few native VPU flops per op;
-* the O(n^2)/O(n^3) work — normal-matrix assembly (MXU matmul), Jacobi/Ruiz
+  pairs with ~48-bit effective mantissa, a few native f32 flops per op;
+* the O(n^2)/O(n^3) work — normal-matrix assembly (matmul), Jacobi/Ruiz
   scaling, Cholesky factorization and substitutions — runs in plain f32,
   which is harmless because the factorization is only a *preconditioner*:
   the refinement loop iterates the f32 solve to the fixed point of the ds
@@ -16,7 +16,7 @@ the entire fit:
 This reproduces the reference's f64 semantics (weights, knowns elimination,
 factorial-normalized basis; reference: wlsqm/fitter/impl.pyx) to ~1e-12
 relative, comfortably inside the 1e-10 parity bar, while every hot op is a
-native f32 VPU/MXU instruction.
+native f32 instruction.
 """
 
 from __future__ import annotations
@@ -51,8 +51,7 @@ def _canary_store():
 
     from wlsqm_tpu import config
 
-    d = config.cache_dir()
-    return os.path.join(d, "ds_canary.json") if d else None
+    return os.path.join(config.cache_dir(), "ds_canary.json")
 
 
 def _canary_key(backend: str) -> str:
@@ -83,6 +82,7 @@ def _persist_verdict(backend: str, ok: bool) -> None:
     import tempfile
 
     try:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         try:
             with open(path) as f:
                 data = json.load(f)
@@ -131,43 +131,34 @@ def _run_ds_canary() -> bool:
 def ds_backend_ok() -> bool:
     """Whether double-single arithmetic is trustworthy on this backend.
 
-    TPU backends are trusted without running the canary: pair fidelity
-    there is pinned by the hardware calibration sweeps (the measured
-    kernel/ds error floors match the 2e-15-unit model —
-    benchmarks/README.md), and the canary's two engine compiles cost
-    ~30 s per process on remote bridges.  Everything else (XLA:CPU is
-    the known degrader — see ops/twofloat.py) runs
-    :func:`_run_ds_canary` once per backend and caches the verdict —
-    in-process always, and on disk (keyed by backend + jax version) when
-    ``WLSQM_TPU_COMPILE_CACHE`` is set, so the two engine compiles are
-    one-time per machine rather than per process.
-    The api layer raises on an explicit ``precision="ds"`` request when
-    this is False (override: ``WLSQM_TPU_ALLOW_DEGRADED_DS=1`` downgrades
-    to a warning), and the auto ladder skips the ds rung.
+    Every platform runs :func:`_run_ds_canary` (XLA:CPU is the known
+    degrader — see ops/twofloat.py) once and caches the verdict —
+    in-process always, and on disk (keyed by backend + jax version) in the
+    persistent cache directory (:func:`wlsqm_tpu.config.cache_dir`), so
+    the two engine compiles are one-time per machine rather than per
+    process.  The api layer raises on an explicit ``precision="ds"``
+    request when this is False (override: ``WLSQM_TPU_ALLOW_DEGRADED_DS=1``
+    downgrades to a warning).
 
     The platform is read from the actual device list, not
-    ``jax.default_backend()``: the trust shortcut must key on where the
-    pair arithmetic really executes (tests monkeypatch the backend name
-    to exercise kernel routing on CPU, and ds genuinely degrades there).
+    ``jax.default_backend()``: the verdict must key on where the pair
+    arithmetic really executes.
     """
     try:
         backend = jax.devices()[0].platform
     except Exception:  # pragma: no cover - no devices initialised
         backend = jax.default_backend()
     if backend not in _DS_CANARY:
-        if backend == "tpu":
-            _DS_CANARY[backend] = True
+        # the verdict survives across processes in the persistent cache
+        # directory — the two engine compiles become one-time per machine
+        # per jax version, like the XLA compilation cache
+        persisted = _load_persisted_verdict(backend)
+        if persisted is None:
+            verdict = _run_ds_canary()
+            _persist_verdict(backend, verdict)
+            _DS_CANARY[backend] = verdict
         else:
-            # when the persistent cache is enabled (WLSQM_TPU_COMPILE_CACHE),
-            # the verdict survives across processes — the two engine compiles
-            # become one-time per machine per jax version, like the XLA cache
-            persisted = _load_persisted_verdict(backend)
-            if persisted is None:
-                verdict = _run_ds_canary()
-                _persist_verdict(backend, verdict)
-                _DS_CANARY[backend] = verdict
-            else:
-                _DS_CANARY[backend] = bool(persisted)
+            _DS_CANARY[backend] = bool(persisted)
     return _DS_CANARY[backend]
 
 
@@ -271,9 +262,9 @@ def prepare_ds(xk, nk, xi, order, knowns, weighting, *, dimension, NO,
 
     active, known, unknown = dof_masks_fn(order, knowns, dimension, NO)
 
-    # f32 assembly on the MXU (the preconditioner doesn't need ds fidelity)
+    # f32 assembly (the preconditioner doesn't need ds fidelity)
     cw32 = c[0] * w[0][..., None]
-    # HIGHEST: avoid TPU's default bf16 single-pass f32 matmul (see engine)
+    # HIGHEST: keep f32 contractions out of TF32 (see engine)
     A = jnp.einsum("bkj,bkm->bjm", cw32, c[0],
                    preferred_element_type=jnp.float32,
                    precision=jax.lax.Precision.HIGHEST)
@@ -406,14 +397,12 @@ def _pow2_f32_factors(scale, invert=False):
 def solve_prepared_ds_pair(prep, fk_pair, fi_pair=None):
     """Pair-in/pair-out basic solve: ZERO f64 ops, for ds-resident loops.
 
-    :func:`solve_prepared_ds` takes f64 ``fk`` and returns f64 ``fi`` —
-    on the TPU every elementwise f64 op on the (B, K)/(B, NO) boundary
-    arrays is software-emulated, which dominates tight stepping loops
-    (measured: the split/reassemble ops around the gather+solve cost more
-    than the solve itself, benchmarks/README.md "ds-state stepping").
+    :func:`solve_prepared_ds` takes f64 ``fk`` and returns f64 ``fi``;
+    on a device whose f64 rate is low, the elementwise f64 ops on the
+    (B, K)/(B, NO) boundary arrays can dominate tight stepping loops.
     Here ``fk_pair`` is a ds (hi, lo) f32 pair (B, K) and the result is a
-    ds pair (B, NO); combined with :func:`wlsqm_tpu.ops.gather.gather_rows_pair`
-    an IBVP step touches no f64 at all.
+    ds pair (B, NO); with a row gather of both planes an IBVP step touches
+    no f64 at all.
 
     ``fi_pair`` (ds pair (B, NO)) supplies prescribed values for known
     DOFs (reference knowns-elimination semantics,

@@ -2,7 +2,7 @@
 
 The reference's ``impl`` module holds the numerical engine as C functions:
 ``make_c_nD`` / ``make_A`` / ``preprocess_A`` / ``solve`` /
-``solve_iterative`` (reference: wlsqm/fitter/impl.pyx).  The TPU rebuild's
+``solve_iterative`` (reference: wlsqm/fitter/impl.pyx).  The JAX rebuild's
 engine lives in :mod:`wlsqm_tpu.fitter.engine` as batched pure functions;
 this module re-exports them under their pipeline-stage roles for users who
 navigated the reference by module name.

@@ -2,8 +2,8 @@
 
 The reference's ``infra`` module is C-only memory infrastructure: a bump
 Allocator, CaseManager and per-case Case structs with per-thread scratch
-(reference: wlsqm/fitter/infra.pyx).  In the TPU rebuild that machinery has
-no counterpart — state is batched HBM arrays inside the
+(reference: wlsqm/fitter/infra.pyx).  In the JAX rebuild that machinery has
+no counterpart — state is batched device arrays inside the
 :class:`wlsqm_tpu.fitter.engine.Prepared` pytree, XLA manages temporaries,
 and "allocation" is array creation.  What remains here are the Python-useful
 helpers: DOF counting and the original↔reduced DOF mappings implied by a

@@ -1,6 +1,6 @@
 """Polynomial surrogate evaluation.
 
-TPU-native counterpart of the reference's hand-unrolled FMA Horner evaluators
+Batched counterpart of the reference's hand-unrolled FMA Horner evaluators
 (reference: wlsqm/fitter/polyeval.pyx taylor_{1,2,3}D / general_{1,2,3}D).
 Instead of per-order symmetric Horner forms, evaluation is a dot product of
 the coefficient vector with the (factorial-baked or plain) monomial basis row

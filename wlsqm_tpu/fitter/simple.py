@@ -7,11 +7,11 @@ These are the NumPy-facing convenience wrappers: they accept the same
 array layouts as the reference, write results **in place** into the caller's
 ``fi`` (and ``sens``) arrays, and return the refinement iteration count.
 Internally every variant lowers to one batched, jit-compiled XLA program
-(:func:`wlsqm_tpu.fitter.engine.fit_batch`); there is no serial/parallel
-distinction on TPU — the ``*_many_parallel`` variants are the same compiled
-program, with ``ntasks`` accepted for source compatibility and ignored
-(sharding across chips replaces OpenMP threading; see
-:mod:`wlsqm_tpu.parallel`).
+(:func:`wlsqm_tpu.fitter.engine.fit_batch`) in float64 on the default JAX
+device; there is no serial/parallel distinction — the ``*_many_parallel``
+variants are the same compiled program, with ``ntasks`` accepted for source
+compatibility and ignored (sharding across devices replaces OpenMP
+threading; see :mod:`wlsqm_tpu.parallel`).
 
 For new JAX-native code prefer :mod:`wlsqm_tpu.fitter.engine` /
 :func:`wlsqm_tpu.api.fit` directly: pure functions, device arrays in/out,
@@ -50,22 +50,6 @@ __all__ = [
 ]
 
 
-# below this many cases, accelerator dispatch latency dominates and the
-# host CPU (native f64) is both faster and bit-closer to the reference
-_SMALL_BATCH = 256
-
-
-def _small_batch_cpu_device():
-    import jax
-
-    if jax.default_backend() == "cpu":
-        return None
-    try:
-        return jax.local_devices(backend="cpu")[0]
-    except Exception:
-        return None
-
-
 def _fit_many_host(
     dimension,
     xk,
@@ -88,42 +72,7 @@ def _fit_many_host(
     into the caller's arrays (after the full batch completes — preserving the
     reference's aliasing guarantee that fk may view the fi array,
     reference: wlsqm/fitter/simple.pyx:1010-1016).
-
-    Small batches run on the host CPU backend even when an accelerator is
-    the default: below a few hundred cases the accelerator round-trip
-    latency dominates, and native f64 on CPU reproduces the reference's
-    roundoff more closely than emulated f64.
     """
-    if np.asarray(xk).shape[0] < _SMALL_BATCH:
-        dev = _small_batch_cpu_device()
-        if dev is not None:
-            import jax
-
-            with jax.default_device(dev):
-                return _fit_many_impl(
-                    dimension, xk, fk, nk, xi, fi, sens, do_sens, order,
-                    knowns, weighting_method, iterative, max_iter, debug)
-    return _fit_many_impl(
-        dimension, xk, fk, nk, xi, fi, sens, do_sens, order, knowns,
-        weighting_method, iterative, max_iter, debug)
-
-
-def _fit_many_impl(
-    dimension,
-    xk,
-    fk,
-    nk,
-    xi,
-    fi,
-    sens,
-    do_sens,
-    order,
-    knowns,
-    weighting_method,
-    iterative,
-    max_iter,
-    debug,
-):
     xk = np.asarray(xk, dtype=np.float64)
     fk = np.asarray(fk, dtype=np.float64)
     nk = np.asarray(nk, dtype=np.int32)
@@ -142,47 +91,6 @@ def _fit_many_impl(
     NO = defs.number_of_dofs(dimension, int(order.max()))
     fi_np = np.asarray(fi, dtype=np.float64)
     fi_in = np.ascontiguousarray(fi_np[:, :NO])
-
-    # Route accelerator batches through the api layer's tiered auto
-    # dispatch (wlsqm_tpu/fitter/ladder.py): per-(order, knowns,
-    # weighting) groups ride the fused kernel when the conditioning probe
-    # allows, the rest merges through ONE ladder-routed engine call (ds /
-    # fast / mixed / f64) — the compat layer never falls blindly to
-    # emulated f64.  The ds-grade routing is an explicit documented knob:
-    # wlsqm_tpu.config.set_compat_precision("f64") (or
-    # WLSQM_TPU_NO_KERNEL_COMPAT=1 at process start) restores strict
-    # reference-f64 behavior.
-    from wlsqm_tpu import config as _config
-
-    strict = _config.compat_precision() == "f64"
-    # the compat surface defaults to reference iteration-count semantics:
-    # reference users BRANCH on the returned count (reference:
-    # wlsqm/fitter/simple.pyx:103-105), so iterative compat calls keep the
-    # f64 engine's exact-stagnation counts unless fidelity is explicitly
-    # switched off (config.set_iter_count_fidelity(False))
-    if iterative and _config.iter_count_fidelity(compat=True):
-        strict = True
-    if not (debug or strict):
-        import jax
-
-        from wlsqm_tpu.ops import pallas_fit
-
-        if jax.default_backend() != "cpu" and B >= pallas_fit.TILE:
-            from wlsqm_tpu import api
-
-            want_sens = bool(do_sens) and sens is not None
-            res = api.fit_many(
-                jnp.asarray(xk_b), jnp.asarray(fk), jnp.asarray(xi_b),
-                nk=jnp.asarray(nk), order=order, knowns=knowns,
-                weighting=weighting_method, fi_init=jnp.asarray(fi_in),
-                do_sens=want_sens, max_order=int(order.max()),
-                backend="auto", iterative=bool(iterative),
-                max_iter=int(max_iter))
-            fi[:, :NO] = np.asarray(res.fi)[:B]
-            if want_sens:
-                sens[...] = 0.0
-                sens[:, :K, :NO] = np.asarray(res.sens)[:B]
-            return int(np.asarray(res.iterations)[:B].max(initial=0))
 
     # bucket the batch/neighbor axes so organically varying sizes reuse a
     # few compiled programs; padded cases are all-known order-0 no-ops and

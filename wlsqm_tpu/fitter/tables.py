@@ -1,4 +1,4 @@
-"""Monomial exponent tables driving the TPU-native WLSQM kernels.
+"""Monomial exponent tables driving the batched WLSQM engine.
 
 The reference hand-unrolls the basis construction per dimension and order
 (reference: wlsqm/fitter/impl.pyx:70-544 ``make_c_{1,2,3}D``) and the

@@ -1,1 +1,1 @@
-"""TPU compute ops: batched equilibration, factorization, and kernels."""
+"""Device compute ops: batched equilibration, factorization, and solves."""

@@ -1,4 +1,4 @@
-"""Batched Ruiz-2001 l∞ row/column equilibration, TPU-native.
+"""Batched Ruiz-2001 l∞ row/column equilibration.
 
 Reproduces the scalar iteration of the reference
 (reference: wlsqm/utils/lapackdrivers.pyx:553-623 ``rescale_ruiz2001_c``):
@@ -112,7 +112,7 @@ def jacobi_scale(A: jax.Array):
     For SPD matrices Jacobi scaling is within a factor n of the optimal
     symmetric diagonal scaling (van der Sluis 1969), and it needs no
     iteration — a single elementwise pass instead of Ruiz's l∞ sweeps.  Used
-    by the TPU fast path, where the scaling only preconditions the f32
+    by the f32 emulation modes, where the scaling only preconditions the f32
     factorization and any residual conditioning slack is absorbed by the
     f64 refinement loop.
 

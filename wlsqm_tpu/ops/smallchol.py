@@ -1,13 +1,13 @@
-"""Unrolled batched Cholesky for tiny matrices (n <= 35), TPU-native.
+"""Unrolled batched Cholesky for tiny matrices (n <= 35).
 
 XLA's ``jnp.linalg.cholesky`` / ``triangular_solve`` are built for large
-matrices; on TPU a batch of 15x15 systems gets padded to 128x128 tiles and a
-column-recursive loop, costing ~100x more than the arithmetic requires.
-WLSQM's normal matrices are at most 35x35 (3D order 4), so here the
-factorization is fully unrolled at trace time over matrix *entries*: every
-L[i][j] is a (B, ...)-shaped vector and the n^3/6 multiply-subtract chain
-becomes one big fused elementwise XLA computation over the batch axis — the
-VPU sees long (B,)-vectors, never a padded matrix tile.
+matrices and may lower a batch of 15x15 systems to padded tiles or a
+column-recursive loop.  WLSQM's normal matrices are at most 35x35 (3D
+order 4), so here the factorization is fully unrolled at trace time over
+matrix *entries*: every L[i][j] is a (B, ...)-shaped vector and the n^3/6
+multiply-subtract chain becomes one big fused elementwise XLA computation
+over the batch axis — the device sees long (B,)-vectors, never a padded
+matrix tile.  Selected with ``solver="chol_unrolled"``.
 
 This mirrors how the reference leans on LAPACK for small dense systems
 (reference: wlsqm/utils/lapackdrivers.pyx dgetrf/dgetrs usage) but maps the

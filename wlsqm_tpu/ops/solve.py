@@ -2,12 +2,12 @@
 
 The reference LU-factors each (scaled) normal matrix with LAPACK dgetrf and
 back-substitutes with dgetrs (reference: wlsqm/utils/lapackdrivers.pyx:1415-1463,
-wlsqm/fitter/impl.pyx:686,826).  On TPU, the idiomatic choice is Cholesky:
+wlsqm/fitter/impl.pyx:686,826).  Here the idiomatic choice is Cholesky:
 the WLSQM normal matrix A = Cᵀ·diag(w)·C is SPD, and symmetric Ruiz
 equilibration preserves SPD-ness, so ``jnp.linalg.cholesky`` (natively batched
-in XLA, works in emulated f64 on TPU) plus two batched triangular solves
-replace the LU pair.  An LU mode is kept for parity debugging — XLA's LU
-does not currently compile for TPU, so that mode is CPU-only.
+in XLA) plus two batched triangular solves replace the LU pair.  A
+non-SPD matrix yields NaN factors (no exception), which the per-case
+``FitResult.ok`` flags report.  An LU mode is kept for parity debugging.
 
 All functions are batched over arbitrary leading axes and jit-safe.
 """

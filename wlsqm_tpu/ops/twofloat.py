@@ -1,22 +1,23 @@
 """Double-single ("two-float") arithmetic on f32 pairs.
 
-TPU v5e has no native f64; XLA emulates it in software at a large multiple of
-f32 cost.  For the places where the WLSQM pipeline genuinely needs ~1e-14
-effective precision — the basis rows, weights, RHS contraction, and the
-residual matvecs of the fast path's refinement loop — this module provides
-error-free-transformation arithmetic on (hi, lo) float32 pairs, giving ≈ 48
-significant bits at a handful of native f32 VPU flops per operation.
+The explicit ``precision="ds"`` mode emulates float64 for devices whose
+float64 rate is low.  For the places where the WLSQM pipeline genuinely
+needs ~1e-14 effective precision — the basis rows, weights, RHS
+contraction, and the residual matvecs of the refinement loop — this module
+provides error-free-transformation arithmetic on (hi, lo) float32 pairs,
+giving ≈ 48 significant bits at a handful of native f32 flops per
+operation.
 
 Robustness note: classic Dekker splitting relies on exact rounding of
 separate mul/add ops and silently breaks if the compiler contracts them into
 FMAs.  The splits here therefore use mantissa *bit masking* via bitcast,
 which no contraction can alter; the remaining building block, two_sum, uses
-only additions.  Empirically the TPU compilers (XLA and Mosaic/Pallas)
-preserve these chains exactly (validated ulp-exact on device); XLA *CPU* can
-fuse-and-duplicate the chains in large graphs, degrading pairs to plain f32
-— which is why the ds precision mode targets TPU and the CPU default is the
-native-f64 path.  (``lax.optimization_barrier`` does not help: XLA strips it
-during compilation, and Mosaic rejects it.)
+only additions.  XLA *CPU* can fuse-and-duplicate the chains in large
+graphs, degrading pairs to plain f32 — which is why every platform's default
+is the native-f64 path and an explicit ds request is guarded by a runtime
+canary (:func:`wlsqm_tpu.fitter.engine_ds.ds_backend_ok`).
+(``lax.optimization_barrier`` does not help: XLA strips it during
+compilation.)
 
 Values are represented as a (hi, lo) tuple of equally-shaped f32 arrays with
 ``value = hi + lo`` and ``|lo| <= ulp(hi)/2``.
@@ -36,8 +37,8 @@ __all__ = [
     "sum_along", "dot",
 ]
 
-# keep top 11 explicit mantissa bits; plain int so Pallas kernels using
-# these ops do not capture a traced constant
+# keep top 11 explicit mantissa bits; a plain int so traced code using
+# these ops does not capture an array constant
 _HI_MASK = 0xFFFFF000
 
 

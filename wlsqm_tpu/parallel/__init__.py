@@ -1,1 +1,1 @@
-"""Multi-chip data-parallel sharding of the case axis."""
+"""Multi-device data-parallel sharding of the case axis."""

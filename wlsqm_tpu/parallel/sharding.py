@@ -1,10 +1,10 @@
-"""Multi-chip scaling: data-parallel sharding of the case axis.
+"""Multi-device scaling: data-parallel sharding of the case axis.
 
 The reference's only parallelism is OpenMP threads over independent local
 problems within one process (reference: wlsqm/fitter/simple.pyx prange sites;
-SURVEY §2 parallelism row).  The TPU-native counterpart is pure data
+SURVEY §2 parallelism row).  The multi-device counterpart is pure data
 parallelism: every case's (xk, fk, A, fi) lives on the shard that owns it, the
-fit path needs **zero** inter-chip communication, and scaling out is just
+fit path needs **zero** inter-device communication, and scaling out is just
 laying the case axis across a 1-D device mesh.
 
 Two entry points:
@@ -92,7 +92,7 @@ def sharded_fit_many(
     (fi_out, sens, iterations, cond_scaled) with the same sharding.
 
     The body is exactly the single-device engine; ``shard_map`` guarantees
-    the compiled program contains no cross-chip collectives (the parallel ≡
+    the compiled program contains no cross-device collectives (the parallel ≡
     serial equivalence test of the reference becomes "sharded ≡ single
     device" here).
     """
@@ -118,60 +118,13 @@ def sharded_fit_many(
     )
 
 
-def sharded_fit_pallas(
-    mesh: Mesh,
-    xk,
-    fk,
-    nk,
-    xi,
-    fi_init=None,
-    *,
-    dimension: int,
-    order: int,
-    weighting: int,
-    knowns: int = 0,
-    refine_steps: int | None = None,
-    axis_name: str = CASE_AXIS,
-    interpret: bool = False,
-):
-    """The fused Pallas fit kernel sharded over the case axis.
-
-    Each shard runs the VMEM-resident kernel on its local cases — the same
-    zero-collective data parallelism as :func:`sharded_fit_many`, at the
-    fused kernel's throughput.  Per-shard case counts must be multiples of
-    the kernel TILE (1024).  ``knowns``/``fi_init``/``refine_steps`` pass
-    through to :func:`wlsqm_tpu.ops.pallas_fit.fit_pallas`.  Verified
-    bit-identical to single-device execution (tests/test_sharding.py).
-    """
-    from wlsqm_tpu.ops.pallas_fit import fit_pallas
-
-    rs = {} if refine_steps is None else dict(refine_steps=refine_steps)
-
-    def local(xk, fk, nk, xi, *fi0):
-        return fit_pallas(xk, fk, nk, xi, fi0[0] if fi0 else None,
-                          dimension=dimension, order=order,
-                          weighting=weighting, knowns=knowns,
-                          interpret=interpret, **rs)
-
-    spec = P(axis_name)
-    args = [jnp.asarray(xk), jnp.asarray(fk), jnp.asarray(nk),
-            jnp.asarray(xi)]
-    if fi_init is not None:
-        args.append(jnp.asarray(fi_init))
-    fn = jax.shard_map(
-        local, mesh=mesh, in_specs=(spec,) * len(args), out_specs=spec,
-        check_vma=False,
-    )
-    return jax.jit(fn)(*args)
-
-
 def replicated_coefficients(mesh: Mesh, fi, axis_name: str = CASE_AXIS):
     """All-gather the (small) solved coefficient arrays to every device.
 
     Global interpolation of the patched model may read local models owned by
     other shards (reference analogue: the kNN/radius patching in
     wlsqm/fitter/expert.pyx:830-986).  Coefficients are tiny (NO ≤ 35
-    doubles per case), so a full replication over ICI is the simple, fast
+    doubles per case), so a full replication between devices is the simple, fast
     layout for the query side.
     """
     def gather(x):
@@ -195,7 +148,7 @@ def sharded_interpolate_continuous(mesh: Mesh, fi, xi, x, r, *,
     query points replicate.  Each shard blends its own models into partial
     (weighted-sum, weight) accumulators with
     :func:`wlsqm_tpu.fitter.interp.interpolate_continuous`, and one ``psum``
-    pair over ICI combines them — the only collective in the pipeline.
+    pair combines them — the only collective in the pipeline.
     Device-side replacement for the reference's host-side radius-query
     blending (reference: wlsqm/fitter/expert.pyx:898-986).
 
@@ -243,8 +196,8 @@ def sharded_knn(mesh: Mesh, points, queries, k: int,
 
     The collective pattern SURVEY §5 calls for when building neighborhoods
     from a distributed cloud: each shard all-gathers the (small) coordinate
-    array over ICI once, then answers its own query shard with the local
-    brute-force MXU ranking (:func:`wlsqm_tpu.utils.neighbors.knn`'s device
+    array once, then answers its own query shard with the local
+    brute-force ranking (:func:`wlsqm_tpu.utils.neighbors.knn`'s device
     path).  Queries and results are sharded; points may arrive sharded or
     replicated (they are gathered either way).
 
@@ -344,71 +297,23 @@ def sharded_interpolate_nearest(mesh: Mesh, fi, xi, x, *, dimension: int,
 
 
 def sharded_gather_values(mesh: Mesh, values, idx,
-                          axis_name: str = CASE_AXIS, plan=None):
+                          axis_name: str = CASE_AXIS):
     """Shard-local neighbor-value gather for distributed IBVP stepping.
 
     ``values`` (n, ...) — per-point field values, sharded over the mesh;
     ``idx`` (B, K) — GLOBAL neighbor indices, sharded over cases.  Each
-    shard all-gathers the small value array over ICI once per call and
-    gathers its own cases' rows locally, so the indexing cost — which
-    dominates the measured single-chip step (benchmarks/README.md: XLA's
-    TPU gather is indexing-bound at ~60 M indices/s) — runs at B/D indices
-    per chip.  Multi-field states (n, F) ride the same indices (row
-    gather), combining with :func:`sharded_solve_prepared`'s multi-RHS
-    path for the fully amortized step.
-
-    ``plan``: an :class:`wlsqm_tpu.ops.gather.GatherPlan` built for the
-    FULL ``idx`` (Morton-ordered cloud) — the shard-local gathers then
-    run the window kernel (measured 2.5x the XLA gather on the F=1 step,
-    BASELINE.md round 4): each shard receives its slice of the plan's
-    block metadata as a runtime array and patches overflow-block rows
-    dynamically.  Requires the blocks to divide evenly over the shards
-    (B a multiple of D * plan.T); otherwise — or with ``plan=None`` —
-    the plain XLA gather serves.
+    shard all-gathers the small value array once per call and gathers its
+    own cases' rows locally with XLA's row gather (``v[idx]``), so every
+    device indexes only B/D cases.  Multi-field states (n, F) ride the
+    same indices (row gather), combining with
+    :func:`sharded_solve_prepared`'s multi-RHS path for the fully
+    amortized step.
 
     Returns (B, K, ...) neighbor values, sharded like ``idx``.
     """
     values = jnp.asarray(values)
     idx = jnp.asarray(idx)
     spec = P(axis_name)
-    D = mesh.shape[axis_name]
-    B, K = idx.shape
-
-    if (plan is not None and B == plan.T * plan.nblk
-            and plan.nblk % D == 0 and K == plan.K
-            and values.shape[0] == plan.n):
-        from wlsqm_tpu.ops import gather as gth
-
-        nblk_s = plan.nblk // D
-        Bs = B // D
-        meta = np.asarray(plan.meta, np.int32).reshape(plan.nblk, 3)
-        # shard-local overflow rows (each block lies in one shard since
-        # Bs = nblk_s * T), padded with 0 — row 0 is rewritten with its
-        # own correct value, which is benign
-        by_shard = [[] for _ in range(D)]
-        for b in plan.bad_blocks:
-            s = (b * plan.T) // Bs
-            by_shard[s].extend(
-                r - s * Bs for r in range(b * plan.T,
-                                          min((b + 1) * plan.T, B)))
-        mb = max(1, max(len(r) for r in by_shard))
-        bad = np.zeros((D, mb), np.int32)
-        for s, rows in enumerate(by_shard):
-            bad[s, :len(rows)] = rows
-        TKp = -(-plan.T * plan.K // 128) * 128
-        interp = jax.default_backend() == "cpu"
-
-        def local_win(v_s, idx_s, meta_s, bad_s):
-            v_all = jax.lax.all_gather(v_s, axis_name, axis=0, tiled=True)
-            return gth.gather_local(
-                v_all, idx_s, meta_s, bad_s[0], window=plan.window,
-                TKp=TKp, n_pad=plan.n_pad, T=plan.T, interpret=interp)
-
-        fn = jax.shard_map(
-            local_win, mesh=mesh, in_specs=(spec, spec, spec, spec),
-            out_specs=spec, check_vma=False)
-        return jax.jit(fn)(values, idx, jnp.asarray(meta),
-                           jnp.asarray(bad))
 
     def local(v_s, idx_s):
         v_all = jax.lax.all_gather(v_s, axis_name, axis=0, tiled=True)
@@ -431,7 +336,7 @@ def sharded_solve_prepared(mesh: Mesh, prep, fk, fi_init=None, *,
     reference's guest-solver pattern, reference:
     wlsqm/fitter/expert.pyx:110-124).  Every case solves on the shard
     that owns its factorization; the compiled program contains no
-    cross-chip communication.
+    cross-device communication.
 
     Returns (fi, sens) with fi sharded like the case axis.
     """

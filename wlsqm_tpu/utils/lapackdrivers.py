@@ -23,9 +23,8 @@ OpenMP ``prange`` over per-matrix LAPACK calls (reference:
 wlsqm/utils/lapackdrivers.pyx:1088-1354,1551-1723).  The ``*p`` variants
 are aliases of their serial counterparts, since batching already owns the
 machine.  These compat stacks are host-resident f64 NumPy arrays, so the
-host path beats a device round-trip (TPU f64 is software-emulated; the
-fitting engine's TPU-native batched linear algebra lives in
-:mod:`wlsqm_tpu.ops`, not here).
+host path avoids a device round-trip (the fitting engine's batched device
+linear algebra lives in :mod:`wlsqm_tpu.ops`, not here).
 
 Factored-pair representation: ``mgeneralfactor``/``mgeneralfactored`` use
 batched LU with pivots byte-compatible with LAPACK ``dgetrf``/``dgetrs`` —
@@ -81,7 +80,7 @@ def distribute_items(nitems, ntasks):
     """Distribute items 0..nitems-1 over ntasks tasks with near-equal loads.
 
     Returns (blocksizes, baseidxs), each of shape (ntasks,), dtype int32.
-    Kept for API compatibility; the TPU backend shards by array axis instead.
+    Kept for API compatibility; the JAX backend shards by array axis instead.
     """
     blocksizes = np.zeros(ntasks, dtype=np.int32)
     base, rem = divmod(nitems, ntasks)

@@ -3,14 +3,14 @@
 The reference's fit API takes neighbor coordinates as explicit inputs; the
 neighbor search itself appears only in ExpertSolver's global interpolation
 (scipy cKDTree, reference: wlsqm/fitter/expert.pyx:658-681) and in the
-examples.  For the TPU rebuild, neighborhood construction from a global
-cloud is a first-class subsystem, with two interchangeable backends:
+examples.  Here neighborhood construction from a global cloud is a
+first-class subsystem, with two interchangeable backends:
 
-* ``backend="tpu"`` — brute-force batched distance + top-k on device.  For
-  point counts up to a few million per shard this is typically faster than
-  host tree construction + query, keeps the data on-device, and is trivially
-  shardable (each query block computes distances against the full —
-  replicated or gathered — cloud).
+* ``backend="device"`` — brute-force batched distance + top-k on the
+  default JAX device.  It builds an (M, N) distance block per query block,
+  so it suits clouds up to ~1e5 points; it keeps the data on-device and is
+  trivially shardable (each query block computes distances against the
+  full — replicated or gathered — cloud).
 * ``backend="host"`` — a k-d tree on the host: the framework's native C++
   tree (:mod:`wlsqm_tpu.native`, multithreaded over queries) when the
   toolchain is available, scipy's cKDTree otherwise.  Better for very large
@@ -49,31 +49,37 @@ def host_tree(points):
 def _knn_device(points, queries, k: int):
     """Brute-force k-NN: (N, dim) cloud, (M, dim) queries -> (M, k) indices.
 
-    Distances form an (M, N) matrix computed via the MXU-friendly expansion
+    Distances form an (M, N) matrix computed via the matmul expansion
     |q - p|^2 = |q|^2 - 2 q·p + |p|^2; top-k by lax.top_k on the negated
-    distances.  Ranking runs in f32 — under emulated f64 the distance
-    matrix would cost 8x the memory and ~30x the time, and neighbor
-    *selection* only needs the ordering (near-exact ties may pick either
-    neighbor, which is equally valid).
+    distances.  Ranking runs in f32 — an f64 distance matrix would cost 2x
+    the memory, and neighbor *selection* only needs the ordering
+    (near-exact ties may pick either neighbor, which is equally valid).
+    The product runs at HIGHEST precision so that the ranking does not
+    depend on the global matmul setting (TF32 would keep 10 mantissa bits).
     """
     p32 = points.astype(jnp.float32)
     q32 = queries.astype(jnp.float32)
     p2 = jnp.sum(p32 * p32, axis=-1)
     q2 = jnp.sum(q32 * q32, axis=-1)
-    d2 = q2[:, None] - 2.0 * (q32 @ p32.T) + p2[None, :]
+    qp = jnp.matmul(q32, p32.T, precision=jax.lax.Precision.HIGHEST)
+    d2 = q2[:, None] - 2.0 * qp + p2[None, :]
     _, idx = jax.lax.top_k(-d2, k)
     # exact distances recomputed in the input dtype for the selected few
     diff = queries[:, None, :] - points[idx]
     return idx, jnp.sum(diff * diff, axis=-1)
 
 
-def knn(points, queries, k: int, backend: str = "tpu", block: int = 65536):
+def knn(points, queries, k: int, backend: str = "device", block: int = 65536):
     """k nearest neighbors of each query point.
 
     Returns (indices (M, k) int64, distances² (M, k) float64-like).
     Queries are processed in blocks of ``block`` to bound the (M, N)
-    distance matrix.
+    distance matrix.  ``backend`` is "device" or "host" (see the module
+    docstring).
     """
+    if backend not in ("device", "host"):
+        raise ValueError(
+            "backend must be 'device' or 'host'; got %r" % (backend,))
     if backend == "host":
         tree = host_tree(points)
         d, idx = tree.query(np.asarray(queries), k=k)
@@ -105,7 +111,7 @@ def radius_neighbors(points, queries, r: float, backend: str = "host"):
 
 
 def build_neighborhoods(points, values, centers, k: int,
-                        backend: str = "tpu", exclude_self: bool = False):
+                        backend: str = "device", exclude_self: bool = False):
     """Assemble padded (xk, fk, nk) fit inputs from a global cloud.
 
     points  : (N, dim) cloud coordinates

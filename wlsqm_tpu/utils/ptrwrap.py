@@ -2,7 +2,7 @@
 
 The reference smuggles a C ``void*`` through a Python attribute so the
 Python-level ExpertSolver can hold a CaseManager pointer
-(reference: wlsqm/utils/ptrwrap.pyx).  The TPU rebuild has no raw pointers —
+(reference: wlsqm/utils/ptrwrap.pyx).  The JAX rebuild has no raw pointers —
 prepared state is an ordinary pytree of JAX arrays — so this class survives
 only as an inert container for source compatibility.
 """
